@@ -6,24 +6,46 @@ Needs one CUDA card (exits non-zero without one, and without the
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``levelgan_torch/csrc`` (parallel nvcc);
-3. kernel parity + timing at each gumbel_64 stage shape, B = 1024, bf16:
-   each kernel against its plain PyTorch version (max abs error against a
-   stated bf16 tolerance), kernel / plain / library-call median times
-   (CUDA events, warm-up excluded) and the roofline bound;
-4. the main path: a gumbel_64 generator with seeded random weights is
+3. forward kernel parity + timing at each gumbel_64 stage shape,
+   B = 1024, bf16: each kernel against its plain PyTorch version (max abs
+   error against a stated bf16 tolerance), kernel / plain / library-call
+   median times (CUDA events, warm-up excluded) and the roofline bound;
+4. the export path: a gumbel_64 generator with seeded random weights is
    written as a FORMAT.md checkpoint and exported through the port's CLI
    (65,536 levels at batch 1024); the levels are checked, the kernels'
    launch counters must show every batch went through them, and one batch
    through the kernels is held against the plain path on the card;
 5. a torch.profiler breakdown of one export batch (device time by kernel,
    device idle share) and the host's D2H and unpack times;
-6. print the ``kernels`` JSON line, the card line, and the final
-   ``{"ok": true, "device": ...}`` line.
+6. training kernel parity + timing at the gumbel_64 training shapes
+   (B = 64): K1 bwd at up0-up2 (on residuals from K1 forward), K1L bwd at
+   up3 and up2, K2 core fwd / bwd on [64, 32768] f32, each against its
+   plain version, with kernel / plain / library device times (CUDA
+   events around calls queued behind a spin kernel, ``queued_ms``) and
+   bounds; and the two gradient-penalty implementations timed whole;
+7. the training path: ``levelgan_torch.cli.train --preset gumbel_64`` for
+   30 steps (corpus cut to 256 levels), checked metrics, checkpoint keys
+   and launch counters, then 1,024 levels exported from that checkpoint;
+8. one critic iteration and one generator update through the kernels held
+   against the plain path (``plain=True``, plain GP) on the same state,
+   batch and noise: the losses and the critic's gradients against the
+   plain path, each side's generator gradients against an f32 copy of the
+   generator; every generator parameter must get a non-zero gradient;
+9. the warm step time from a device-synchronised loop of the same step,
+   and a torch.profiler breakdown of training steps (device time by
+   kernel, idle share, host time by op);
+10. print the ``kernels`` JSON line, the card line, and the final
+    ``{"ok": true, "device": ...}`` line.
+
+``--phases`` runs a subset (for bring-up); only the full run prints the
+contract lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -33,6 +55,7 @@ import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 B = 1024                     # export batch
 N_LEVELS = 65536
@@ -44,6 +67,24 @@ ATOL, RTOL = 2.0 ** -6, 2.0 ** -6
 # whole-generator check, kernels vs plain on the card, same z and noise
 LOGIT_TOL = 0.05             # max |dlogit| / max |logit|
 TILE_AGREE = 0.97            # share of identical sampled tiles
+# training shapes and tolerances
+B_TRAIN = 64                 # gumbel_64 train.batch_size
+TRAIN_STEPS = 30
+CORPUS_CUT = 256             # data.corpus_size for the smoke run (of 4096)
+# a sum over many bf16 products (dx, dgamma/dbeta): max |diff| / max |ref|
+SUM_TOL = 2.0 ** -6
+K2_TOL = 1e-5                # K2 core in f32: max rel error
+PER_STEP = {"K1": 18, "K1L": 6, "K1 bwd": 3, "K1L bwd": 1,
+            "K2 core fwd": 5, "K2 core bwd": 5}
+# kernels vs plain training on the card (bf16 activations on both sides):
+# each critic parameter's gradient, max |diff| / max |ref|, and each loss,
+# |diff| / max(|ref|, 0.1)
+GRAD_TOL = 0.05
+LOSS_TOL = 0.05
+# generator gradients through four bf16 stages, each side against an f32
+# copy of the generator: kernels <= BF16_RATIO * plain bf16 + BF16_SLACK
+BF16_RATIO, BF16_SLACK = 2.0, 0.02
+SPIN_CYCLES = 20_000_000     # ~10 ms of SM clock: first spin of queued_ms
 
 
 class SmokeFailure(RuntimeError):
@@ -85,10 +126,10 @@ def stage_shapes(cfg):
             for i, st in enumerate(Generator(cfg.model).stages())]
 
 
-def stage_inputs(h, ci, co, device, seed):
+def stage_inputs(h, ci, co, device, seed, batch=B):
     import torch
     g = torch.Generator(device).manual_seed(seed)
-    x = torch.randn((B, h, h, ci), generator=g, device=device).to(
+    x = torch.randn((batch, h, h, ci), generator=g, device=device).to(
         torch.bfloat16)
     w = torch.randn((4, 4, ci, co), generator=g, device=device) * 0.02
     gamma = 1.0 + 0.1 * torch.randn(co, generator=g, device=device)
@@ -104,10 +145,103 @@ def close(a, b) -> tuple[float, bool]:
     return float(err.max()), ok
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_rows(prof):
+    """Device-side records of a profile (kernels, copies, memsets), largest
+    first.  The aten ops above them carry the same device time again, and
+    so do the device spans of annotations such as ``Optimizer.step#...``
+    (``is_user_annotation``): neither is summed."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and not e.is_user_annotation),
+                  key=dev_us, reverse=True)
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Device time of one call of ``fn``, for microsecond kernels where
+    CUDA events around one call would time the host's launch overhead: a
+    spin kernel holds the stream while the host queues ``n`` calls, and
+    CUDA events time those calls back to back.  If the spin ended before
+    the host had queued them all, the spin is doubled and the run
+    repeated; after the last try the time is kept with a note (it then
+    includes some host time).  Device gaps between kernels are included,
+    and the result does not depend on torch.profiler's tracing."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for attempt in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        hidden = not start.query()     # the spin still holds the stream
+        end.record()
+        end.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / n
+        cycles *= 2
+    print(f"  note: host launches of {getattr(fn, '__name__', 'fn')} were "
+          f"not hidden behind a {cycles // 2} cycle spin; time includes "
+          "host time")
+    return start.elapsed_time(end) / n
+
+
+def profiled_ms(fn, n: int) -> float | None:
+    """Summed device time of one call of ``fn`` by torch.profiler over
+    ``n`` calls after warm-up, or None where the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(dev_us(e) for e in device_rows(prof))
+    return total / 1e3 / n if total > 0 else None
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def counters():
+    """Each kernel's launch counter: name -> (module, attribute)."""
+    from levelgan_torch.kernels import gp_penalty as k2
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.kernels import upsample_rows as k1l
+    return {"K1": (k1, "launches"), "K1L": (k1l, "launches"),
+            "K1 bwd": (k1, "bwd_launches"), "K1L bwd": (k1l, "bwd_launches"),
+            "K2 core fwd": (k2, "fwd_launches"),
+            "K2 core bwd": (k2, "bwd_launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 def kernel_parity(cfg, device):
@@ -269,7 +403,6 @@ def profile_export(cfg, device, batches=4):
     """Phase 5: where one export batch's time goes (torch.profiler device
     time by kernel, device busy share, host-side D2H and unpack)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from levelgan_torch.export import generate_batch, unpack_levels
     from levelgan_torch.models import Generator
@@ -290,15 +423,7 @@ def profile_export(cfg, device, batches=4):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / batches
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side kernel records only: the aten ops above them carry the
-    # same device time again
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  key=dev_us, reverse=True)
+    rows = device_rows(prof)
     if not rows:
         print("  profiler recorded no device kernels: breakdown not measured")
         return
@@ -322,25 +447,458 @@ def profile_export(cfg, device, batches=4):
           f"{t_d2h:.3f} ms, NumPy unpack {t_unpack:.3f} ms")
 
 
-def kernels_line(records, counts):
-    """One entry per kernel; times summed over the stages it serves on the
-    main path (i.e. per 1024-level batch), error the max over them."""
+def train_kernel_parity(cfg, device):
+    """Phase 6: the training-path kernels at the gumbel_64 training shapes
+    (B = 64), each against its plain version, with kernel / plain /
+    library device times (``queued_ms``) and bounds."""
+    import torch
+    import torch.nn.functional as F
+    from levelgan_torch.kernels import gp_penalty as k2
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.kernels import upsample_rows as k1l
+
+    gs, slope = cfg.model.group_size, cfg.model.leaky_slope
+    bf16, b = torch.bfloat16, B_TRAIN
+    rows = []
+
+    def record(kern, stage, shape, errs, run, plain, library, flops, nbytes,
+               peak=PEAK_BF16_FLOPS):
+        bad = {k: v for k, v in errs.items() if v[1] > v[2]}
+        torch.cuda.synchronize()
+        if bad:
+            fail(f"{kern} at {stage} disagrees with its plain version: "
+                 + ", ".join(f"{k} max rel err {v[1]:.4g} > {v[2]:.4g}"
+                             for k, v in bad.items()))
+        t_k, t_p, t_l = queued_ms(run), queued_ms(plain), queued_ms(library)
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        rec = dict(kernel=kern, stage=stage, shape=shape,
+                   max_abs_err=max(v[0] for v in errs.values()),
+                   max_rel_err=max(v[1] for v in errs.values()), ms=t_k,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+        print(f"  {kern} {stage} {shape}: "
+              + " ".join(f"{k} abs {v[0]:.4g} rel {v[1]:.3g} (tol {v[2]:.3g})"
+                         for k, v in errs.items())
+              + f"; ms={t_k:.5f} plain_ms={t_p:.5f} library_ms={t_l:.5f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        rows.append(rec)
+
+    def errs_of(names, got, want, tol):
+        return {n: (float((a.float() - r.float()).abs().max()),
+                    rel_err(a, r), tol) for n, a, r in zip(names, got, want)}
+
+    for i, (name, h, ci, co) in enumerate(stage_shapes(cfg)):
+        x, w, gamma, beta = stage_inputs(h, ci, co, device, seed=200 + i,
+                                         batch=b)
+        gen = torch.Generator(device).manual_seed(300 + i)
+        flops = 32.0 * b * h * h * ci * co        # the dx contraction
+        wt_lib = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
+        kernels = ["K1 bwd"] if k1.fits(h, h) else ["K1L bwd"]
+        if name == "up2":
+            kernels.append("K1L bwd")    # K1L bwd held at a second shape
+        for kern in kernels:
+            if kern == "K1 bwd":
+                _, ypre, mu, rstd = k1.upsample_block_fwd(
+                    x, w, gamma, beta, slope=slope, group_size=gs,
+                    residuals=True)
+                g = torch.randn(ypre.shape, generator=gen,
+                                device=device).to(bf16)
+
+                def run():
+                    return k1.upsample_block_bwd(w, gamma, beta, mu, rstd, g,
+                                                 ypre, slope=slope,
+                                                 group_size=gs)
+
+                def plain():
+                    return k1.upsample_block_bwd_plain(
+                        w, gamma, beta, mu, rstd, g, ypre, slope=slope,
+                        group_size=gs)
+
+                # one autograd call of the library chain for the same stage:
+                # dx, dgamma, dbeta (dw is outside the kernel, as in JAX)
+                xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+                gl = gamma.to(bf16).requires_grad_()
+                bl = beta.to(bf16).requires_grad_()
+                yl = F.leaky_relu(F.group_norm(
+                    F.conv_transpose2d(xl, wt_lib, stride=2, padding=1),
+                    co // gs, gl, bl, 1e-5), slope)
+                gl_ct = g.permute(0, 3, 1, 2).contiguous()
+
+                def library():
+                    return torch.autograd.grad(yl, (xl, gl, bl), gl_ct,
+                                               retain_graph=True)
+
+                errs = errs_of(("dx", "dy", "dgamma", "dbeta"), run(),
+                               plain(), SUM_TOL)
+                nbytes = (3 * g.numel() * 2 + b * h * h * ci * 2
+                          + 16 * ci * co * 2 + 2 * b * co * 4 + 4 * co * 4)
+            else:
+                dyf = torch.randn((b, h, h, 4 * co), generator=gen,
+                                  device=device).to(bf16)
+                dy_lib = k1l.unfold(dyf).permute(0, 3, 1, 2).contiguous()
+
+                def run():
+                    return k1l.upsample_rows_bwd(dyf, w)
+
+                def plain():
+                    return k1l.conv_rows_bwd_plain(dyf, w)
+
+                def library():
+                    return F.conv2d(dy_lib, wt_lib, stride=2, padding=1)
+
+                errs = errs_of(("dx",), (run(),), (plain(),), SUM_TOL)
+                nbytes = dyf.numel() * 2 + b * h * h * ci * 2 + 16 * ci * co * 2
+            record(kern, name, [b, h, h, ci, co], errs, run, plain, library,
+                   flops, nbytes)
+
+    # K2 core on the critic's flattened input gradient [64, 64 * 64 * 8]
+    gen = torch.Generator(device).manual_seed(400)
+    m = cfg.model
+    f = m.level_size * m.level_size * m.n_tiles
+    g2 = torch.randn((b, f), generator=gen, device=device) * 0.01
+    ct = torch.randn((b,), generator=gen, device=device)
+    pen_k, norm_k = k2.norm_penalty_fwd(g2)
+    errs = errs_of(("pen", "norm"), (pen_k, norm_k),
+                   k2.norm_penalty_fwd_plain(g2), K2_TOL)
+    record("K2 core fwd", "gp", [b, f], errs, lambda: k2.norm_penalty_fwd(g2),
+           lambda: k2.norm_penalty_fwd_plain(g2),
+           lambda: torch.linalg.vector_norm(g2, dim=1), 2.0 * b * f,
+           4.0 * b * f + 2 * 4 * b, PEAK_F32_FLOPS)
+    scale = (ct * 2.0 * (norm_k - 1.0) / norm_k)[:, None]
+    errs = errs_of(("dg",), (k2.norm_penalty_bwd(g2, norm_k, ct),),
+                   (k2.norm_penalty_bwd_plain(g2, norm_k, ct),), K2_TOL)
+    record("K2 core bwd", "gp", [b, f], errs,
+           lambda: k2.norm_penalty_bwd(g2, norm_k, ct),
+           lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
+           lambda: torch.mul(g2, scale), 1.0 * b * f, 8.0 * b * f + 3 * 4 * b,
+           PEAK_F32_FLOPS)
+    return rows
+
+
+def time_gradient_penalties(cfg, device):
+    """Both GP implementations whole (value + backward to the critic's
+    parameters) on the gumbel_64 critic at B = 64, CUDA-event medians."""
+    import torch
+    from levelgan_torch.kernels.gp_penalty import gradient_penalty_core
+    from levelgan_torch.models import Critic
+    from levelgan_torch.ops.grad_penalty import gradient_penalty
+
+    m = cfg.model
+    critic = Critic(m).init_params(torch.Generator().manual_seed(1)).to(device)
+    g = torch.Generator(device).manual_seed(5)
+    shape = (B_TRAIN, m.level_size, m.level_size, m.n_tiles)
+    real = torch.nn.functional.one_hot(
+        torch.randint(0, m.n_tiles, shape[:3], generator=g, device=device),
+        m.n_tiles).float()
+    fake = torch.softmax(torch.randn(shape, generator=g, device=device), -1)
+    eps = torch.rand((B_TRAIN, 1, 1, 1), generator=g, device=device)
+    params = list(critic.parameters())
+    out = {}
+    for name, fn in (("plain", gradient_penalty),
+                     ("core", gradient_penalty_core),
+                     ("plain again", gradient_penalty)):
+        def run(fn=fn):
+            val = fn(lambda x, c: critic(x, c), real, fake, None, eps)
+            return val, torch.autograd.grad(val, params, allow_unused=True)
+        out[name] = (float(run()[0].detach()), median_ms(run),
+                     profiled_ms(run, n=5))
+    diff = abs(out["core"][0] - out["plain"][0]) / max(abs(out["plain"][0]),
+                                                       1e-6)
+    print(f"  GP value + backward, gumbel_64 critic, B={B_TRAIN} (wall ms "
+          "by CUDA events / device ms by profiler): "
+          + ", ".join(f"{k} {v[1]:.4f} / "
+                      + ("not measured" if v[2] is None else f"{v[2]:.4f}")
+                      for k, v in out.items())
+          + f" (values {out['plain'][0]:.6g} / {out['core'][0]:.6g}, rel "
+          f"diff {diff:.3g})")
+    if diff > 1e-3:
+        fail("the two GP implementations disagree")
+
+
+def train_path(cfg, device, workdir):
+    """Phase 7: train through the CLI with counted launches, check the
+    metrics and the checkpoint, then export from that checkpoint."""
+    import numpy as np
+    import torch
+    from levelgan_torch.cli import export as cli_export
+    from levelgan_torch.cli import train as cli_train
+
+    out = os.path.join(workdir, "train")
+    print(f"  data.corpus_size cut to {CORPUS_CUT} (the preset's 4096 "
+          "levels take minutes of host NumPy carving)")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_train.main(["--preset", "gumbel_64", "--set",
+                         f"train.steps={TRAIN_STEPS}", "--set",
+                         "io.log_every=10", "--set",
+                         f"data.corpus_size={CORPUS_CUT}", "--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        fail(f"train CLI returned {rc}")
+    expect = {k: TRAIN_STEPS * v for k, v in PER_STEP.items()}
+    print(f"  trained {TRAIN_STEPS} steps through the CLI in {wall:.3f} s "
+          f"(wall, incl. corpus carving and checkpoint); launches {counts}")
+    if counts != expect:
+        fail(f"training launches {counts} != expected {expect}")
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        lines = [json.loads(s) for s in fh.read().splitlines()]
+    if [r["step"] for r in lines] != [10, 20, 30]:
+        fail(f"metrics.jsonl steps {[r['step'] for r in lines]}")
+    for r in lines:
+        for k in ("d_loss", "g_loss", "gp", "wdist", "kl", "step_ms"):
+            if not math.isfinite(r.get(k, float("nan"))):
+                fail(f"metrics line {r}: {k} not finite")
+        print(f"  metrics step {r['step']}: d_loss={r['d_loss']:.5g} "
+              f"g_loss={r['g_loss']:.5g} gp={r['gp']:.5g} "
+              f"wdist={r['wdist']:.5g} kl={r['kl']:.5g} "
+              f"step_ms={r['step_ms']:.4g}")
+    ckpt = os.path.join(out, "ckpt", f"step_{TRAIN_STEPS:08d}")
+    keys = np.load(os.path.join(ckpt, "arrays.npz")).files
+    for prefix in ("generator/", "g_ema/", "discriminator/"):
+        if not any(k.startswith(prefix) for k in keys):
+            fail(f"checkpoint {ckpt} holds no {prefix} arrays")
+    levels_path = os.path.join(workdir, "trained_levels.npz")
+    if cli_export.main(["--ckpt", ckpt, "--n", "1024", "--batch", "1024",
+                        "--out", levels_path, "--seed", "0"]) != 0:
+        fail("export from the trained checkpoint failed")
+    levels = np.load(levels_path)["levels"]
+    m = cfg.model
+    if (levels.shape != (1024, m.level_size, m.level_size)
+            or levels.dtype != np.uint8 or int(levels.max()) >= m.n_tiles):
+        fail(f"levels from the trained checkpoint: {levels.dtype} "
+             f"{levels.shape} max {int(levels.max())}")
+    print(f"  exported 1024 levels from {os.path.basename(ckpt)}: tile "
+          f"histogram {np.round(np.bincount(levels.reshape(-1), minlength=m.n_tiles) / levels.size, 4).tolist()}")
+    return counts
+
+
+def warm_steps(cfg, device):
+    """The warm step time: a device-synchronised loop of the same step
+    (create_state + make_wgan_gp_step, per-step batches and noise as
+    api.train draws them) over a random uint8 corpus already on the
+    device; the median over steps 10-30."""
+    import torch
+    from levelgan_torch.api import sample_batch, step_generator
+    from levelgan_torch.train.state import create_state
+    from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+
+    m = cfg.model
+    state = create_state(cfg, device)
+    step_fn = make_wgan_gp_step(cfg)
+    corpus = torch.randint(0, m.n_tiles, (CORPUS_CUT, m.level_size,
+                                          m.level_size), dtype=torch.uint8,
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(9))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_STEPS):
+        rng = step_generator(cfg, i, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, sample_batch(corpus, cfg, rng),
+                           generator=rng)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    warm = statistics.median(times[10:])
+    print(f"  warm step: median {warm:.3f} ms over steps 10-{TRAIN_STEPS} "
+          f"(min {min(times[10:]):.3f}, max {max(times[10:]):.3f}; first "
+          f"step {times[0]:.1f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    return state, step_fn, corpus
+
+
+def train_vs_plain(cfg, device):
+    """Phase 8: one critic iteration and one generator update through the
+    kernels, then through the plain path (``plain=True``, the plain GP), on
+    one state, batch and noise.
+
+    The critic's gradients differ only in the GP core (both sides run the
+    same bf16 critic on the same fake), so they are held to GRAD_TOL of
+    each other.  The generator's pass through four bf16 stages whose
+    rounding points differ (the kernel normalises the f32 conv tile, the
+    plain path rounds the conv to bf16 first), so each side is held to an
+    f32 copy of the generator (plain path, f32 activations): the kernels'
+    gradient may be at most BF16_RATIO times as far from it as the plain
+    bf16 path's, plus BF16_SLACK.
+    """
+    import dataclasses
+
+    import torch
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.kernels.gp_penalty import gradient_penalty_core
+    from levelgan_torch.models import Generator, sample_head
+    from levelgan_torch.ops.grad_penalty import gradient_penalty
+    from levelgan_torch.train.gan import current_tau, prepare_real
+    from levelgan_torch.train.state import create_state
+    from levelgan_torch.train.wgan_gp import draw_step_noise
+
+    m, t = cfg.model, cfg.train
+    state = create_state(cfg, device, seed=11)
+    gen, critic = state.generator, state.critic
+    gen32 = Generator(dataclasses.replace(m, dtype="float32"))
+    gen32.load_state_dict(gen.state_dict())
+    gen32 = gen32.to(device)
+    g = torch.Generator(device).manual_seed(12)
+    ids = torch.randint(0, m.n_tiles, (B_TRAIN, m.level_size, m.level_size),
+                        dtype=torch.uint8, device=device, generator=g)
+    noise = draw_step_noise(cfg, 1, B_TRAIN, device, g)
+    nz, ng = noise["critic"][0], noise["g"]
+    tau = current_tau(cfg, 0)
+    real, _ = prepare_real(cfg, ids, nz["elements"])
+    with torch.no_grad():
+        # one fake for both sides, so the critic check isolates the GP core
+        fake = sample_head(gen(nz["z"]), m.head, tau, m.structural_head,
+                           noise=nz["noise"])
+    d_params = list(critic.parameters())
+    res = {}
+    for side, gp_fn, model, plain in (
+            ("kernels", gradient_penalty_core, gen, False),
+            ("plain", gradient_penalty, gen, True),
+            ("f32", None, gen32, True)):
+        before = read_counts()
+        d_loss, d_grads = float("nan"), None
+        if gp_fn is not None:
+            wdist = critic(real, None).mean() - critic(fake, None).mean()
+            d_loss = -wdist + t.gp_lambda * gp_fn(lambda x, c: critic(x, c),
+                                                  real, fake, None, nz["eps"])
+            d_grads = torch.autograd.grad(d_loss, d_params)
+            d_loss = float(d_loss.detach())
+        fake_g = sample_head(model(ng["z"], plain=plain), m.head, tau,
+                             m.structural_head, noise=ng["noise"])
+        g_loss = -critic(fake_g, None).mean()
+        g_grads = torch.autograd.grad(g_loss, list(model.parameters()),
+                                      allow_unused=True)
+        torch.cuda.synchronize()
+        after = read_counts()
+        res[side] = (d_loss, float(g_loss.detach()), d_grads, g_grads,
+                     {k: after[k] - before[k] for k in after})
+    k, p, ref = res["kernels"], res["plain"], res["f32"]
+    launches = k[4]
+    d_err = sorted(((rel_err(a, r), n) for (n, _), a, r in zip(
+        critic.named_parameters(), k[2], p[2])), reverse=True)
+    g_err = sorted(((rel_err(a, r32), rel_err(b, r32), n)
+                    for (n, _), a, b, r32 in zip(gen.named_parameters(), k[3],
+                                                 p[3], ref[3])),
+                   key=lambda e: e[0] - BF16_RATIO * e[1], reverse=True)
+    loss_err = max(abs(k[i] - p[i]) / max(abs(p[i]), 0.1) for i in (0, 1))
+    print(f"  d_loss kernels {k[0]:.6g} plain {p[0]:.6g}; g_loss kernels "
+          f"{k[1]:.6g} plain {p[1]:.6g} f32 {ref[1]:.6g}; loss err "
+          f"{loss_err:.3g} (tol {LOSS_TOL}); launches {launches}")
+    print("  critic gradients, kernels vs plain (max |diff| / max |ref|, tol "
+          f"{GRAD_TOL}), largest: "
+          + ", ".join(f"{n} {e:.3g}" for e, n in d_err[:4]))
+    print("  generator gradients vs the f32 generator (kernels / plain bf16; "
+          f"allowed kernels <= {BF16_RATIO} * plain + {BF16_SLACK}), "
+          "closest to the limit: "
+          + ", ".join(f"{n} {a:.3g}/{b:.3g}" for a, b, n in g_err[:6]))
+    n_k1 = sum(k1.fits(h, h) for _, h, _, _ in stage_shapes(cfg))
+    n_k1l = len(stage_shapes(cfg)) - n_k1
+    want = {"K1": n_k1, "K1L": n_k1l, "K1 bwd": n_k1, "K1L bwd": n_k1l,
+            "K2 core fwd": 1, "K2 core bwd": 1}
+    if launches != want or any(p[4].values()) or any(ref[4].values()):
+        fail(f"kernel side launched {launches} (want {want}), plain sides "
+             f"{p[4]} {ref[4]}")
+    for (name, _), gk in zip(gen.named_parameters(), k[3]):
+        if gk is None or not bool(gk.abs().max() > 0):
+            fail(f"generator parameter {name} got no gradient through the "
+                 "kernels")
+    if loss_err > LOSS_TOL or d_err[0][0] > GRAD_TOL or any(
+            a > BF16_RATIO * b + BF16_SLACK for a, b, _ in g_err):
+        fail("training through the kernels disagrees with the plain path")
+    print(f"  every one of the {len(k[3])} generator parameters got a "
+          "non-zero gradient through the kernels")
+
+
+def profile_train(state, step_fn, corpus, cfg, steps=3):
+    """Phase 9: where a training step's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from levelgan_torch.api import sample_batch, step_generator
+
+    rngs = [step_generator(cfg, 100 + i, corpus.device) for i in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rng in rngs:
+            state, _ = step_fn(state, sample_batch(corpus, cfg, rng),
+                               generator=rng)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    rows = device_rows(prof)
+    if not rows:
+        print("  profiler recorded no device kernels: breakdown not measured")
+        return
+    # K2 core bwd runs only on the autograd engine's thread: if the
+    # profiler lost that thread's kernels, the breakdown is partial
+    seen = sum(e.count for e in rows if "norm_penalty_bwd" in e.key)
+    want = PER_STEP["K2 core bwd"] * steps
+    if seen != want:
+        print(f"  note: the profile holds {seen} K2 core bwd launches of "
+              f"{want}: kernels of the autograd thread are missing, so "
+              "device busy below is a lower bound")
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3 / steps
+    ours = ("upsample_block_fwd_kernel", "upsample_rows_fwd_kernel",
+            "k1_bwd_", "dx_gather_kernel", "norm_penalty_")
+    ours_ms = sum(dev_us(e) for e in rows
+                  if any(o in e.key for o in ours)) / 1e3 / steps
+    print(f"  per step (profiled, {steps} steps): wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the port's kernels "
+          f"{ours_ms:.3f} ms of device time; {sum(e.count for e in rows) // steps} "
+          "device ops per step")
+    for e in rows[:15]:
+        print(f"    {dev_us(e) / 1e3 / steps:8.3f} ms  x{e.count // steps:<4d}"
+              f" {e.key[:90]}")
+    from torch.autograd import DeviceType
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CUDA),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print("  host: top ops by self CPU time per step")
+    for e in host[:10]:
+        print(f"    {e.self_cpu_time_total / 1e3 / steps:8.3f} ms  "
+              f"x{e.count // steps:<5d} {e.key[:80]}")
+
+
+def kernels_line(records, counts, train_records, train_counts):
+    """One entry per kernel.  The forward kernels' times are summed over
+    the stages they serve on the export path (per 1024-level batch), with
+    that path's launches; the training kernels' over the stages they serve
+    in a training step (one launch per stage, B = 64), with the training
+    run's launches.  Errors are the max over those stages."""
     meta = {
         "K1": ("upsample_block_fwd", "levelgan_torch/csrc/upsample_block.cu",
                "levelgan/kernels/upsample_block.py:304"),
         "K1L": ("upsample_rows_fwd", "levelgan_torch/csrc/upsample_rows.cu",
                 "levelgan/kernels/upsample_rows.py:253"),
+        "K1 bwd": ("upsample_block_bwd",
+                   "levelgan_torch/csrc/upsample_block.cu",
+                   "levelgan/kernels/upsample_block.py:462"),
+        "K1L bwd": ("upsample_rows_bwd",
+                    "levelgan_torch/csrc/upsample_rows.cu",
+                    "levelgan/kernels/upsample_rows.py:323"),
+        "K2 core fwd": ("norm_penalty_fwd", "levelgan_torch/csrc/gp_penalty.cu",
+                        "levelgan/kernels/gp_penalty.py:81"),
+        "K2 core bwd": ("norm_penalty_bwd", "levelgan_torch/csrc/gp_penalty.cu",
+                        "levelgan/kernels/gp_penalty.py:99"),
     }
     from levelgan_torch.kernels import upsample_block as k1
-    on_path = {r["stage"]: ("K1" if k1.fits(r["shape"][1], r["shape"][1])
-                            else "K1L") for r in records}
+
+    def on_path(r):
+        if r["stage"] == "gp":
+            return True
+        fits = k1.fits(r["shape"][1], r["shape"][1])
+        return r["kernel"] in (("K1", "K1 bwd") if fits else ("K1L", "K1L bwd"))
+
     out = []
     for kern, (name, src, repl) in meta.items():
-        rs = [r for r in records
-              if r["kernel"] == kern and on_path[r["stage"]] == kern]
+        train = kern not in ("K1", "K1L")
+        rs = [r for r in (train_records if train else records)
+              if r["kernel"] == kern and on_path(r)]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts[kern],
+            "launches": (train_counts if train else counts)[kern],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -348,12 +906,25 @@ def kernels_line(records, counts):
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(r["library_ms"] for r in rs),
             "stages": [r["stage"] for r in rs],
-            "per": "one 1024-level batch (sum over stages)",
+            "per": ("one launch per stage of a gumbel_64 training step "
+                    "(B = 64), device time" if train else
+                    "one 1024-level export batch (sum over stages)"),
+            "path": "training" if train else "export",
         })
     return {"kernels": out}
 
 
-def main() -> int:
+PHASES = ("build", "parity", "export", "export_profile", "train_parity",
+          "train", "train_check", "train_profile")
+
+
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    phases = ap.parse_args(argv).phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
 
     import torch
     if not torch.cuda.is_available():
@@ -375,28 +946,64 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    secs = build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s wall "
-          + " ".join(f"{k}={v:.2f}s" for k, v in secs.items()))
-    for stem, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}: {line.strip()}")
+    def phase(name):
+        run = name in phases
+        if run:
+            print(f"[{time.perf_counter() - t_start:7.1f} s] phase {name}",
+                  flush=True)
+        return run
+
+    if phase("build"):
+        t0 = time.perf_counter()
+        secs = build.build_all()
+        print(f"build: {time.perf_counter() - t0:.2f} s wall "
+              + " ".join(f"{k}={v:.2f}s" for k, v in secs.items()))
+        for stem, log in build.build_logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {stem}: {line.strip()}")
 
     cfg = preset("gumbel_64")
-    print("kernel parity and timing (gumbel_64 stages, bf16):")
-    records = kernel_parity(cfg, device)
-    print("main path: gumbel_64 export through the port's CLI")
+    records = counts = train_records = train_counts = None
+    if phase("parity"):
+        print("forward kernel parity and timing (gumbel_64 stages, B=1024, "
+              "bf16):")
+        records = kernel_parity(cfg, device)
     workdir = tempfile.mkdtemp(prefix="levelgan_torch_smoke_")
     try:
-        counts = main_path(cfg, device, workdir)
+        if phase("export"):
+            print("export path: gumbel_64 export through the port's CLI")
+            counts = main_path(cfg, device, workdir)
+        if phase("export_profile"):
+            print("profile: one export batch")
+            profile_export(cfg, device)
+        if phase("train_parity"):
+            print(f"training kernel parity and timing (gumbel_64, "
+                  f"B={B_TRAIN}):")
+            train_records = train_kernel_parity(cfg, device)
+            time_gradient_penalties(cfg, device)
+        if phase("train"):
+            print(f"training path: levelgan_torch.cli.train --preset "
+                  f"gumbel_64, {TRAIN_STEPS} steps")
+            train_counts = train_path(cfg, device, workdir)
+        if phase("train_check"):
+            print("training through the kernels vs the plain path:")
+            train_vs_plain(cfg, device)
+        if phase("train_profile"):
+            print("warm steps and profile: gumbel_64 training")
+            state, step_fn, corpus = warm_steps(cfg, device)
+            profile_train(state, step_fn, corpus, cfg)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print("profile: one export batch")
-    profile_export(cfg, device)
-    print(json.dumps(kernels_line(records, counts)))
+    print(f"[{time.perf_counter() - t_start:7.1f} s] phases done")
+    if set(phases) != set(PHASES):
+        print(f"ran phases {phases}: contract lines are printed only by the "
+              "full run")
+        return 0
+    print(json.dumps(kernels_line(records, counts, train_records,
+                                  train_counts)))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -405,4 +1012,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,4 +1,4 @@
-"""Parameter bridge: JAX-layout generator arrays -> the port's parameters.
+"""Parameter bridge: JAX-layout arrays <-> the port's parameters.
 
 Input is either the flat ``arrays.npz`` mapping of a FORMAT.md checkpoint
 (keys ``generator/...`` and, when the run tracked an EMA, ``g_ema/...``;
@@ -7,6 +7,8 @@ already-unprefixed flat mapping of the Flax param tree (``seed/kernel``,
 ``up0/film/bias``, ...).  The result maps the port's ``state_dict`` names
 (``seed.kernel``, ``up0.film.bias``, ...) to f32 tensors.  No layout change
 is needed: the port keeps the JAX package's HWIO and [in, out] layouts.
+The critic's arrays live under ``discriminator/...`` (``down0/kernel``,
+``scale1``, ``head/kernel``, ...) and map the same way.
 """
 
 from __future__ import annotations
@@ -41,3 +43,21 @@ def generator_params_to_flat(state_dict: Mapping[str, torch.Tensor],
     """The inverse: port ``state_dict`` -> ``{prefix/flax/path: array}``."""
     return {f"{prefix}/{k.replace('.', '/')}":
             v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+
+
+def critic_params_from_flat(flat: Mapping[str, np.ndarray]
+                            ) -> dict[str, torch.Tensor]:
+    """``discriminator/...`` arrays (or an unprefixed flat critic tree) ->
+    ``{Critic state_dict name: f32 tensor}``."""
+    prefix = "discriminator/"
+    sub = {k[len(prefix):]: v for k, v in flat.items()
+           if k.startswith(prefix)} or dict(flat)
+    return {k.replace("/", "."): torch.from_numpy(np.array(v, np.float32))
+            for k, v in sub.items()}
+
+
+def critic_params_to_flat(state_dict: Mapping[str, torch.Tensor],
+                          prefix: str = "discriminator"
+                          ) -> dict[str, np.ndarray]:
+    """The inverse: Critic ``state_dict`` -> ``{prefix/flax/path: array}``."""
+    return generator_params_to_flat(state_dict, prefix)

@@ -1,0 +1,62 @@
+"""Train CLI: ``python -m levelgan_torch.cli.train``.
+
+Port of ``levelgan/cli/train.py``: a preset or a config file, dotted
+``--set key=value`` overrides, ``--out`` for ``io.out_dir``; runs
+``levelgan_torch.api.train`` on the GPU (``--device cpu`` for the plain
+CPU path).  ``--print-config`` prints the resolved config and exits.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from levelgan_torch.api import train
+from levelgan_torch.config import PRESET_NAMES, load_config
+
+
+def parse_overrides(pairs: list[str]) -> dict:
+    out = {}
+    for p in pairs:
+        if "=" not in p:
+            raise SystemExit(f"--set expects key=value, got '{p}'")
+        k, v = p.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="levelgan-torch-train",
+        description="Train a tile-level GAN (PyTorch port).")
+    ap.add_argument("--preset", choices=PRESET_NAMES, default=None,
+                    help="named config preset")
+    ap.add_argument("--config", default=None, help="YAML/JSON config file")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="dotted config override, e.g. --set train.steps=500")
+    ap.add_argument("--out", default=None, help="shortcut for io.out_dir")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "PyTorch path)")
+    ap.add_argument("--print-config", action="store_true",
+                    help="print the fully-resolved config as JSON and exit")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    overrides = parse_overrides(args.set)
+    if args.out is not None:
+        overrides["io.out_dir"] = args.out
+    cfg = load_config(args.config, args.preset or
+                      (None if args.config else "toy_dcgan_16"), overrides)
+    if args.print_config:
+        print(cfg.to_json())
+        return 0
+    result = train(cfg, device=args.device)
+    print(f"[levelgan_torch] done: checkpoint={result['checkpoint']} "
+          f"kl={result['kl']:.5f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

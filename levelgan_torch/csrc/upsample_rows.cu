@@ -1,9 +1,10 @@
 // K1L forward, pass 1: row-tiled ConvTranspose(4x4, s2, SAME) emitted in
-// the folded parity layout, plus per-(sample, channel) GroupNorm sums.
+// the folded parity layout, plus per-(sample, channel) GroupNorm sums; and
+// K1L backward: the input gradient from the folded cotangent.
 //
-// Replaces levelgan/kernels/upsample_rows.py:_conv_fwd (the Pallas call at
-// :253), the kernel of the JAX package's late-stage path
-// (upsample_block_rows_sm).  Output yf [B, H, W, 4Co] bf16: channel block
+// The forward replaces levelgan/kernels/upsample_rows.py:_conv_fwd (the
+// Pallas call at :253), the kernel of the JAX package's late-stage path
+// (upsample_block_rows_sm); the backward replaces _conv_bwd (:323).  Output yf [B, H, W, 4Co] bf16: channel block
 // p = 2a + b holds output parity (a, b), so the kernel writes its
 // accumulator tile as it stands.  s1/s2 [B, Co] f32 receive the channel sums
 // of the f32 (pre-rounding) conv output over all positions and parities,
@@ -160,4 +161,20 @@ extern "C" int upsample_rows_fwd(const void* x, const void* wt, void* yf,
       static_cast<const __nv_bfloat16*>(wt), static_cast<__nv_bfloat16*>(yf),
       static_cast<float*>(s1), static_cast<float*>(s2), H, W, Ci, Co);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1L backward: dyf [B,H,W,4Co] bf16 (the folded pre-norm cotangent, channel
+// block 2a+b = parity (a, b)), wb [16,Ci,Co] bf16 -> dx [B,H,W,Ci] bf16,
+// by the gather GEMM of stage_common.cuh read straight from the folded
+// layout: no zero-padded copy of dyf and no 9-shift packed weights with
+// structured zeros (the TPU kernel's _pack_w_bwd); each parity multiplies
+// only its own 4 taps.  What bounds it on an H100 at gumbel_64 up3
+// (B = 64): 4.29 GFLOP against 25 MB of dyf in and dx out, so the bytes.
+// The caller checks the shape rules (Ci % 32 == 0, Co % 32 == 0 and the dx
+// tiling rule).  Returns cudaGetLastError().
+extern "C" int upsample_rows_bwd(const void* dyf, const void* wb, void* dx,
+                                 int B, int H, int W, int Ci, int Co,
+                                 void* stream) {
+  return static_cast<int>(lgt::launch_dx_gather<true>(
+      dyf, wb, dx, B, H, W, Ci, Co, static_cast<cudaStream_t>(stream)));
 }

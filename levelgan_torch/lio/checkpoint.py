@@ -4,8 +4,10 @@ One directory per checkpoint, ``step_XXXXXXXX/`` with ``arrays.npz`` (flat
 keys) and ``manifest.json`` (format version, step, sorted key list, the
 full config), written atomically: a ``.tmp_*`` sibling is written and
 fsynced, then renamed into place.  The port writes the fields it has so
-far — the generator and the step — and reads the generator (EMA first)
-from checkpoints that either package wrote.
+far — the generator, and when given the critic (``discriminator/...``) and
+the G EMA (``g_ema/...``), and the step — and reads the generator (EMA
+first) from checkpoints that either package wrote.  The optimizer states
+and the rng key wait for the full-state checkpoint (resume).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import shutil
 import numpy as np
 import torch
 
-from levelgan_torch.bridge import (generator_params_from_flat,
+from levelgan_torch.bridge import (critic_params_to_flat,
+                                   generator_params_from_flat,
                                    generator_params_to_flat)
 from levelgan_torch.config import Config
 
@@ -35,8 +38,13 @@ def _fsync_file(path: str) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
-                    step: int = 0) -> str:
-    """Atomically write ``ckpt_dir/step_XXXXXXXX``; returns the path."""
+                    step: int = 0, *, critic: torch.nn.Module | None = None,
+                    g_ema: torch.nn.Module | None = None,
+                    keep: int = 0) -> str:
+    """Atomically write ``ckpt_dir/step_XXXXXXXX``; returns the path.
+
+    ``keep > 0`` deletes all but the newest ``keep`` step directories.
+    """
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
     final = os.path.join(ckpt_dir, name)
@@ -46,6 +54,10 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
     os.makedirs(tmp)
 
     flat = generator_params_to_flat(generator.state_dict())
+    if critic is not None:
+        flat.update(critic_params_to_flat(critic.state_dict()))
+    if g_ema is not None:
+        flat.update(generator_params_to_flat(g_ema.state_dict(), "g_ema"))
     flat["step"] = np.asarray(step, np.int32)
     arrays_path = os.path.join(tmp, "arrays.npz")
     np.savez(arrays_path, **flat)
@@ -59,6 +71,9 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    if keep > 0:
+        for old in all_checkpoints(ckpt_dir)[:-keep]:
+            shutil.rmtree(old, ignore_errors=True)
     return final
 
 

@@ -9,10 +9,14 @@ paths with ``/`` written as ``.``; activations run in ``cfg.dtype``.
 
 Each stage on a CUDA tensor launches a hand-written kernel, whatever
 ``cfg.use_pallas`` says: K1 (``kernels.upsample_block``) where its
-(sample, group) tile fits, else K1L (``kernels.upsample_rows``).  On a CPU
-tensor, or with ``plain=True``, every stage runs the plain
+(sample, group) tile fits, else K1L (``kernels.upsample_rows``).  When
+autograd records the stage (grad enabled and an input that requires grad)
+it runs as the kernel's ``torch.autograd.Function`` (``UpsampleBlockFn`` /
+``UpsampleRowsFn``), whose backward is the ported backward kernel;
+otherwise the forward kernel alone, without residuals.  On a CPU tensor,
+or with ``plain=True``, every stage runs the plain
 ``ops.blocks.upsample_block``, which mirrors the JAX package's default
-(XLA) stage.
+(XLA) stage and is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -86,9 +90,17 @@ class UpsampleStage(nn.Module):
         x = x.contiguous()
         kw = dict(slope=cfg.leaky_slope, group_size=cfg.group_size)
         if x.is_cuda and not plain:
-            stage = (k1.upsample_block_fwd if k1.fits(x.shape[1], x.shape[2])
-                     else k1l.upsample_block_rows)
-            y = stage(x, self.kernel, self.scale, self.bias, **kw)
+            rows = not k1.fits(x.shape[1], x.shape[2])
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x, self.kernel, self.scale,
+                                              self.bias)):
+                fn = k1l.UpsampleRowsFn if rows else k1.UpsampleBlockFn
+                y = fn.apply(x, self.kernel, self.scale, self.bias,
+                             cfg.leaky_slope, cfg.group_size)
+            else:
+                stage = (k1l.upsample_block_rows if rows
+                         else k1.upsample_block_fwd)
+                y = stage(x, self.kernel, self.scale, self.bias, **kw)
         else:
             y = upsample_block(x, self.kernel, self.scale, self.bias,
                                compute_dtype=dtype, **kw)

@@ -5,12 +5,20 @@ f32 GroupNorm statistics.  ``upsample_block`` is the plain form of the
 fused stage that ``kernels.upsample_block`` (K1) and
 ``kernels.upsample_rows`` (K1L) compute on the card; the CPU path of the
 generator runs it, and the kernels are checked against it.
+``conv_transpose_2x_input_grad`` is the plain form of the backward
+kernels' dx contraction.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def up(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least f32 (bf16 and f32 -> f32; f64 stays f64, so the
+    plain versions can be gradchecked in double)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -44,6 +52,31 @@ def conv_transpose_2x(x: torch.Tensor, w: torch.Tensor,
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(compute_dtype), wt,
                            stride=2, padding=1)
     return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose_2x_input_grad(dy: torch.Tensor, w: torch.Tensor
+                                 ) -> torch.Tensor:
+    """The input gradient of ``conv_transpose_2x``: dy [B,2H,2W,Co] ->
+    dx [B,H,W,Ci] in at least f32, a stride-2 conv of dy with the same
+    (flipped) kernel, on dy as stored and w rounded to dy's dtype."""
+    wt = up(w.to(dy.dtype)).permute(2, 3, 0, 1).flip(2, 3)
+    dx = F.conv2d(up(dy).permute(0, 3, 1, 2), wt, stride=2, padding=1)
+    return dx.permute(0, 2, 3, 1)
+
+
+def group_stats(y: torch.Tensor, group_size: int = 16, eps: float = 1e-5):
+    """Per-(sample, channel) GroupNorm mean and rstd [B, C] (at least f32)
+    of NHWC y, each channel carrying its group's values."""
+    b, c = y.shape[0], y.shape[-1]
+    groups = max(1, c // group_size)
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible into groups of {group_size}")
+    yg = up(y).reshape(b, -1, groups, c // groups)
+    mean = yg.mean(dim=(1, 3))
+    var = (yg - mean[:, None, :, None]).square().mean(dim=(1, 3))
+    rstd = torch.rsqrt(var + eps)
+    return (mean.repeat_interleave(c // groups, dim=1),
+            rstd.repeat_interleave(c // groups, dim=1))
 
 
 def upsample_block(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,

@@ -1,0 +1,106 @@
+"""Train state: the two models, their optimizers, the G EMA and the step.
+
+Port of ``levelgan/train/state.py``.  ``ScheduledAdam`` is
+``torch.optim.Adam`` with optax's semantics: its update is
+``lr * m_hat / (sqrt(v_hat) + eps)`` with eps 1e-8, as ``optax.adam``'s
+is, and its learning rate follows the config's schedule counted in
+optimizer updates (with cosine decay the critic's horizon is scaled by
+``n_critic``, since it updates that many times per train step).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from dataclasses import dataclass
+
+import torch
+
+from levelgan_torch.config import Config
+from levelgan_torch.models import Critic, Generator
+
+
+class ScheduledAdam(torch.optim.Adam):
+    """Adam whose lr at update ``count`` is ``schedule(count)``."""
+
+    def __init__(self, params, schedule, betas):
+        super().__init__(params, lr=schedule(0), betas=betas, eps=1e-8)
+        self.schedule = schedule
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        lr = self.schedule(self.count)
+        for group in self.param_groups:
+            group["lr"] = lr
+        self.count += 1
+        return super().step(closure)
+
+
+def lr_schedule(cfg: Config, base: float, updates_per_step: int = 1):
+    """optax's schedule for ``train.lr_schedule``, as a function of the
+    update count: constant, or cosine decay to 1% over steps * updates."""
+    t = cfg.train
+    if t.lr_schedule == "none":
+        return lambda count: base
+    if t.lr_schedule == "cosine":
+        horizon = t.steps * updates_per_step
+
+        def cosine(count):
+            frac = min(count, horizon) / horizon
+            return base * (0.99 * 0.5 * (1.0 + math.cos(math.pi * frac)) + 0.01)
+        return cosine
+    raise ValueError(f"unknown lr_schedule '{t.lr_schedule}'")
+
+
+def make_optimizers(cfg: Config, gen: Generator, critic: Critic):
+    t = cfg.train
+    d_updates = t.n_critic if t.loss in ("wgan_gp", "curriculum") else 1
+    betas = (t.beta1, t.beta2)
+    opt_g = ScheduledAdam(gen.parameters(), lr_schedule(cfg, t.lr_g), betas)
+    opt_d = ScheduledAdam(critic.parameters(),
+                          lr_schedule(cfg, t.lr_d, d_updates), betas)
+    return opt_g, opt_d
+
+
+@dataclass
+class GANState:
+    step: int
+    generator: Generator
+    critic: Critic
+    opt_g: ScheduledAdam
+    opt_d: ScheduledAdam
+    g_ema: Generator
+
+
+def create_state(cfg: Config, device, *, seed: int | None = None,
+                 generator: Generator | None = None,
+                 critic: Critic | None = None) -> GANState:
+    """Fresh models (the Flax initializers, from a generator seeded with
+    ``seed``, default ``train.seed``) or the given ones, fresh optimizers,
+    and ``g_ema`` a copy of G."""
+    m = cfg.model
+    init = torch.Generator().manual_seed(cfg.train.seed if seed is None
+                                         else seed)
+    if generator is None:
+        generator = Generator(m).init_params(init)
+    if critic is None:
+        critic = Critic(m).init_params(init)
+    generator, critic = generator.to(device), critic.to(device)
+    opt_g, opt_d = make_optimizers(cfg, generator, critic)
+    g_ema = copy.deepcopy(generator).requires_grad_(False)
+    return GANState(step=0, generator=generator, critic=critic, opt_g=opt_g,
+                    opt_d=opt_d, g_ema=g_ema)
+
+
+@torch.no_grad()
+def update_ema(cfg: Config, ema: Generator, params: Generator,
+               step: int) -> None:
+    """In place: ema = d * ema + (1 - d) * params with the warm-up decay
+    d = min(ema_decay, (1 + step) / (10 + step)); with ema_decay 0 the EMA
+    is the live params."""
+    d_max = cfg.train.ema_decay
+    d = min(d_max, (1.0 + step) / (10.0 + step)) if d_max else 0.0
+    d = float(torch.tensor(d, dtype=torch.float32))   # f32, as in JAX
+    for e, p in zip(ema.parameters(), params.parameters()):
+        e.mul_(d).add_(p, alpha=1.0 - d)

@@ -1,0 +1,174 @@
+"""WGAN-GP train step, port of ``levelgan/train/wgan_gp.py``.
+
+One step makes ``n_critic`` critic updates with the gradient penalty, then
+one generator update and the G EMA.  The JAX package runs the critic
+updates as a ``lax.scan`` inside one jit program; here they are a Python
+loop (PyTorch runs eagerly).
+
+Randomness per critic iteration: the D4 elements of the real batch, z, the
+head's Gumbel noise and the GP's interpolation eps; for the generator
+update z and the Gumbel noise.  All of it comes from ``draw_step_noise``
+(one ``torch.Generator``) or is injected as the same structure, which is
+how the tests feed the port the draws the JAX step makes from its keys.
+
+In the critic loop the fake batch is made under ``torch.no_grad()`` (the
+``stop_gradient`` of the JAX step), so the generator's stages run their
+forward kernels without residuals there; in the generator update they run
+as autograd Functions whose backward is the ported backward kernels.
+
+Not in this slice (each raises ``NotImplementedError``): the presence
+penalty (``train.w_presence``), conditional models and the cond-match loss
+(they need ``data/features.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from levelgan_torch.config import Config
+from levelgan_torch.data.codec import decode
+from levelgan_torch.lio.metrics import tile_histogram
+from levelgan_torch.models import sample_head
+from levelgan_torch.ops.grad_penalty import make_gradient_penalty
+from levelgan_torch.ops.gumbel import gumbel_noise
+from levelgan_torch.ops.presence import mbstd_scale_schedule
+from levelgan_torch.train.gan import current_tau, prepare_real
+from levelgan_torch.train.state import GANState, update_ema
+
+
+def head_noise(cfg: Config, batch: int, device,
+               generator: torch.Generator | None):
+    """The Gumbel draws ``sample_head`` takes for this config (None for the
+    noiseless heads; the (base, start, goal) triple for the spatial
+    structural head)."""
+    m = cfg.model
+    if m.head != "gumbel":
+        return None
+    shape = (batch, m.level_size, m.level_size, m.n_tiles)
+    base = gumbel_noise(shape, device=device, generator=generator)
+    if m.structural_head != "spatial":
+        return base
+    cells = (batch, m.level_size * m.level_size)
+    return (base, gumbel_noise(cells, device=device, generator=generator),
+            gumbel_noise(cells, device=device, generator=generator))
+
+
+def draw_step_noise(cfg: Config, n_critic: int, batch: int, device,
+                    generator: torch.Generator | None = None) -> dict:
+    """All random draws of one step: ``{"critic": [per-iteration dict of
+    elements, z, noise, eps], "g": {z, noise}}``."""
+    m = cfg.model
+
+    def z():
+        return torch.randn((batch, m.latent_dim), device=device,
+                           generator=generator)
+
+    its = [{"elements": torch.randint(0, 8, (batch,), device=device,
+                                      generator=generator),
+            "z": z(),
+            "noise": head_noise(cfg, batch, device, generator),
+            "eps": torch.rand((batch, 1, 1, 1), device=device,
+                              generator=generator)}
+           for _ in range(n_critic)]
+    return {"critic": its,
+            "g": {"z": z(), "noise": head_noise(cfg, batch, device,
+                                                generator)}}
+
+
+def _apply_grads(params, grads, opt) -> None:
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+
+
+def make_critic_scan(cfg: Config, gp_impl):
+    """The n_critic critic updates.  Returns ``run(state, batch_ids,
+    noises) -> metrics of the last iteration`` (d_loss, gp, wdist); the
+    critic and its optimizer are updated in place."""
+    m, t = cfg.model, cfg.train
+
+    def run(state: GANState, batch_ids: torch.Tensor, noises) -> dict:
+        gen, critic = state.generator, state.critic
+        tau = current_tau(cfg, state.step)
+        ms = mbstd_scale_schedule(t, state.step)
+        live = state.step >= t.freeze_critic_until
+        params = list(critic.parameters())
+
+        def d_apply(x, cond):
+            return critic(x, cond, ms)
+
+        if len(noises) != len(batch_ids):
+            raise ValueError(f"{len(batch_ids)} critic batches but "
+                             f"{len(noises)} noise draws")
+        out = {}
+        for ids, nz in zip(batch_ids, noises):
+            real, cond = prepare_real(cfg, ids, nz["elements"])
+            with torch.no_grad():
+                fake = sample_head(gen(nz["z"], cond), m.head, tau,
+                                   m.structural_head, noise=nz["noise"])
+            d_real = d_apply(real, cond)
+            d_fake = d_apply(fake, cond)
+            gp = gp_impl(d_apply, real, fake, cond, nz["eps"])
+            wdist = d_real.mean() - d_fake.mean()
+            loss = -wdist + t.gp_lambda * gp
+            if live:   # freeze_critic_until: params and Adam state held
+                _apply_grads(params, torch.autograd.grad(loss, params),
+                             state.opt_d)
+            out = {"d_loss": loss.detach(), "gp": gp.detach(),
+                   "wdist": wdist.detach()}
+        return out
+
+    return run
+
+
+def make_wgan_gp_step(cfg: Config):
+    """The WGAN-GP step: ``step_fn(state, batch_ids [n_critic, B, H, W],
+    noise=None, generator=None) -> (state, metrics)``; ``noise`` is
+    ``draw_step_noise``'s structure, else drawn from ``generator``."""
+    m, t = cfg.model, cfg.train
+    if t.w_closure:
+        raise ValueError("train.w_closure is track-family only "
+                         "(heading-closure prior); tile levels have no "
+                         "loop-closure invariant")
+    if t.w_cond_match and not m.cond_dim:
+        raise ValueError("train.w_cond_match requires a conditional model "
+                         "(model.cond_dim > 0)")
+    if m.cond_dim or t.w_cond_match:
+        raise NotImplementedError(
+            "conditional WGAN-GP training (model.cond_dim, "
+            "train.w_cond_match) needs data/features.py, not ported yet")
+    if t.w_presence:
+        raise NotImplementedError(
+            "train.w_presence > 0 needs presence_penalty "
+            "(ops/presence.py), which lands with the structural-head "
+            "training slice")
+    critic_scan = make_critic_scan(cfg, make_gradient_penalty(m))
+
+    def step_fn(state: GANState, batch_ids: torch.Tensor, noise=None,
+                generator: torch.Generator | None = None):
+        if batch_ids.ndim != 4:
+            raise ValueError("wgan_gp expects batch ids [n_critic, B, H, W]")
+        bsz = batch_ids.shape[1]
+        if noise is None:
+            noise = draw_step_noise(cfg, batch_ids.shape[0], bsz,
+                                    batch_ids.device, generator)
+        it = critic_scan(state, batch_ids, noise["critic"])
+
+        # ---- generator update, against the updated critic --------------
+        gen, critic = state.generator, state.critic
+        ng = noise["g"]
+        fake = sample_head(gen(ng["z"]), m.head, current_tau(cfg, state.step),
+                           m.structural_head, noise=ng["noise"])
+        g_loss = -critic(fake, None, mbstd_scale_schedule(t, state.step)
+                         ).mean()
+        params = list(gen.parameters())
+        _apply_grads(params, torch.autograd.grad(g_loss, params),
+                     state.opt_g)
+        update_ema(cfg, state.g_ema, gen, state.step)
+        state.step += 1
+        metrics = {**it, "g_loss": g_loss.detach(),
+                   "gen_hist": tile_histogram(decode(fake.detach()),
+                                              m.n_tiles)}
+        return state, metrics
+
+    return step_fn

@@ -65,3 +65,92 @@ def test_kernel_wrappers_raise_on_bad_shapes(cuda):
     x, w, gamma, beta = _inputs(2, 4, 48, 32, cuda)   # ci not a multiple of 64
     with pytest.raises(ValueError):
         k1.upsample_block_fwd(x, w, gamma, beta)
+
+
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+# a sum over many bf16 products (dx, dgamma, dbeta): max |diff| / max |ref|
+SUM_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("b,h,ci,co,gs", [(4, 4, 512, 256, 16),
+                                          (4, 8, 256, 128, 16),
+                                          (2, 16, 128, 64, 8)])
+def test_k1_bwd_matches_plain(cuda, b, h, ci, co, gs):
+    from levelgan_torch.kernels import upsample_block as k1
+    x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=2)
+    _, ypre, mu, rstd = k1.upsample_block_fwd(x, w, gamma, beta,
+                                              group_size=gs, residuals=True)
+    g = torch.randn(ypre.shape, device=cuda).to(torch.bfloat16)
+    n = k1.bwd_launches
+    got = k1.upsample_block_bwd(w, gamma, beta, mu, rstd, g, ypre,
+                                group_size=gs)
+    torch.cuda.synchronize()
+    assert k1.bwd_launches == n + 1
+    want = k1.upsample_block_bwd_plain(w, gamma, beta, mu, rstd, g, ypre,
+                                       group_size=gs)
+    for name, a, r in zip(("dx", "dy", "dgamma", "dbeta"), got, want):
+        assert _rel_err(a, r) <= SUM_TOL, name
+
+
+@pytest.mark.parametrize("b,h,ci,co", [(2, 32, 64, 32), (2, 16, 128, 64)])
+def test_k1l_bwd_matches_plain(cuda, b, h, ci, co):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    _, w, _, _ = _inputs(b, h, ci, co, cuda, seed=3)
+    dyf = torch.randn((b, h, h, 4 * co), device=cuda).to(torch.bfloat16)
+    n = k1l.bwd_launches
+    dx = k1l.upsample_rows_bwd(dyf, w)
+    torch.cuda.synchronize()
+    assert k1l.bwd_launches == n + 1
+    assert _rel_err(dx, k1l.conv_rows_bwd_plain(dyf, w)) <= SUM_TOL
+
+
+def test_norm_penalty_matches_plain(cuda):
+    from levelgan_torch.kernels import gp_penalty as k2
+    g2 = torch.randn((64, 64 * 64 * 8), device=cuda) * 0.01
+    ct = torch.randn(64, device=cuda)
+    pen, norm = k2.norm_penalty_fwd(g2)
+    pen_p, norm_p = k2.norm_penalty_fwd_plain(g2)
+    torch.testing.assert_close(norm, norm_p, atol=0, rtol=1e-5)
+    torch.testing.assert_close(pen, pen_p, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(k2.norm_penalty_bwd(g2, norm, ct),
+                               k2.norm_penalty_bwd_plain(g2, norm_p, ct),
+                               atol=1e-7, rtol=1e-5)
+
+
+def test_kernel_generator_backward_reaches_every_parameter(cuda):
+    """Backward through the stage Functions gives every generator parameter
+    a non-zero gradient.  The kernel and plain paths round to bf16 at
+    different points over four stages, so each is held to an f32 copy of
+    the generator: the kernels' gradient at most twice as far from it as
+    the plain bf16 path's, plus 0.02 (chip_smoke.py's rule)."""
+    import dataclasses
+
+    from levelgan_torch.config import preset
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.kernels import upsample_rows as k1l
+    from levelgan_torch.models import Generator
+
+    m = preset("gumbel_64").model
+    gen = Generator(m).init_params(torch.Generator().manual_seed(0)).to(cuda)
+    gen32 = Generator(dataclasses.replace(m, dtype="float32"))
+    gen32.load_state_dict(gen.state_dict())
+    gen32 = gen32.to(cuda)
+    z = torch.randn((8, m.latent_dim), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    w = torch.randn((8, 64, 64, m.n_tiles), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    counts = (k1.bwd_launches, k1l.bwd_launches)
+    params = list(gen.parameters())
+    got = torch.autograd.grad((gen(z) * w).sum(), params)
+    torch.cuda.synchronize()
+    assert (k1.bwd_launches - counts[0], k1l.bwd_launches - counts[1]) == (3, 1)
+    plain = torch.autograd.grad((gen(z, plain=True) * w).sum(), params)
+    ref = torch.autograd.grad((gen32(z, plain=True) * w).sum(),
+                              list(gen32.parameters()))
+    for (name, _), a, p, r in zip(gen.named_parameters(), got, plain, ref):
+        assert a is not None and bool(a.abs().max() > 0), name
+        assert _rel_err(a, r) <= 2 * _rel_err(p, r) + 0.02, name

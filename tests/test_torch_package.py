@@ -13,7 +13,13 @@ _MODULES = [
     "levelgan_torch.kernels.upsample_block",
     "levelgan_torch.kernels.upsample_rows", "levelgan_torch.models",
     "levelgan_torch.bridge", "levelgan_torch.lio.checkpoint",
-    "levelgan_torch.export", "levelgan_torch.cli.export", "chip_smoke",
+    "levelgan_torch.export", "levelgan_torch.cli.export",
+    "levelgan_torch.kernels.gp_penalty", "levelgan_torch.models.critic",
+    "levelgan_torch.ops.grad_penalty", "levelgan_torch.ops.presence",
+    "levelgan_torch.data.augment", "levelgan_torch.data.dataset",
+    "levelgan_torch.lio.metrics", "levelgan_torch.train.state",
+    "levelgan_torch.train.gan", "levelgan_torch.train.wgan_gp",
+    "levelgan_torch.api", "levelgan_torch.cli.train", "chip_smoke",
 ]
 
 
@@ -69,6 +75,18 @@ def test_generate_and_cli_raise_without_gpu(no_gpu, tmp_path):
                   str(tmp_path / "l.npz")])
     assert cli.main(["--ckpt", ckpt, "--n", "4", "--out",
                      str(tmp_path / "l.txt"), "--device", "cpu"]) == 0
+
+
+def test_train_and_train_cli_raise_without_gpu(no_gpu, tmp_path):
+    from levelgan_torch.api import train
+    from levelgan_torch.cli import train as cli
+    from levelgan_torch.config import preset
+
+    cfg = preset("gumbel_64").override(**{"io.out_dir": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, echo=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--preset", "gumbel_64", "--out", str(tmp_path)])
 
 
 def test_chip_smoke_refuses_without_gpu(no_gpu):
