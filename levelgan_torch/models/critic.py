@@ -13,7 +13,7 @@ channel), scaled by ``mbstd_scale`` when given.
 Parameters keep the Flax names and f32 layouts (``down{i}.kernel`` HWIO,
 ``scale{i}``/``bias{i}``, ``head.kernel`` [in, 1], ``cond_embed``,
 ``cond_proj``), so ``state_dict`` keys are the Flax paths with ``/``
-written as ``.``.  Activations run in ``cfg.dtype``; the head in f32.
+written as ``.``.  Activations run in ``cfg.dtype``; the head in at least f32.
 Everything is plain PyTorch (cuDNN convolutions on the card) and twice
 differentiable, as the gradient penalty needs.
 """
@@ -29,7 +29,7 @@ from torch import nn
 from levelgan_torch.config import ModelConfig
 from levelgan_torch.device import torch_dtype
 from levelgan_torch.models.generator import Dense
-from levelgan_torch.ops.blocks import group_norm, leaky_relu
+from levelgan_torch.ops.blocks import group_norm, leaky_relu, up
 
 
 def critic_channels(cfg: ModelConfig) -> list[int]:
@@ -128,8 +128,8 @@ class Critic(nn.Module):
                 mb = mb * mbstd_scale
             x = torch.cat([x, mb.to(dtype).expand(*x.shape[:3], 1)], dim=-1)
         # NHWC flatten, as the Flax head sees it
-        score = self.head(x.reshape(x.shape[0], -1).float(),
-                          torch.float32).squeeze(-1)
+        feat = up(x.reshape(x.shape[0], -1))
+        score = self.head(feat, feat.dtype).squeeze(-1)
         if cfg.cond_dim and cfg.cond_mode == "projection":
             pooled = phi.float().sum(dim=(1, 2))
             proj = self.cond_proj(emb.float(), torch.float32)

@@ -27,16 +27,17 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
 
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                group_size: int = 16, eps: float = 1e-5) -> torch.Tensor:
-    """Per-sample GroupNorm over NHWC [B, ..., C]; statistics in f32."""
+    """Per-sample GroupNorm over NHWC [B, ..., C]; statistics in at least
+    f32."""
     c = x.shape[-1]
     groups = max(1, c // group_size)
     if c % groups:
         raise ValueError(f"channels {c} not divisible into groups of {group_size}")
-    xg = x.float().reshape(x.shape[0], -1, groups, c // groups)
+    xg = up(x).reshape(x.shape[0], -1, groups, c // groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
     xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    return (xn * gamma.float() + beta.float()).to(x.dtype)
+    return (xn * up(gamma) + up(beta)).to(x.dtype)
 
 
 def conv_transpose_2x(x: torch.Tensor, w: torch.Tensor,

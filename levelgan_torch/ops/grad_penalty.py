@@ -12,16 +12,18 @@ The picker (``make_gradient_penalty``) follows ``model.pallas_gp``:
 - ``'auto'`` and ``'core'``: the K2 core kernels
   (``kernels.gp_penalty``) around the plain inner gradient;
 - ``'xla'``: the plain GP;
-- ``'fused'``: raises ``NotImplementedError``; the fused critic-gradient
-  kernel (``levelgan/kernels/critic_grad.py``) is the K2 fused slice.
+- ``'fused'``: the fused critic-gradient kernel with the K2 core around it
+  (``kernels.critic_grad.gradient_penalty_fused``) where
+  ``fused_supported`` holds, ``ValueError`` where it does not, as in the
+  JAX package.  This GP takes the ``Critic`` module, not any callable.
 
 In the JAX package ``'auto'`` resolves to the XLA GP from a TPU v5e
 measurement (``levelgan/kernels/critic_grad.py:434-449``).  That
 measurement does not carry over to the card, and the port runs its kernels
 on the card as it does for K1, so ``'auto'`` takes the core kernels here;
 ``chip_smoke.py`` prints both GP times so that the choice can be revisited
-with the card's numbers.  On CPU tensors the core's wrappers run their
-plain versions, so every choice but ``'fused'`` computes the same function.
+with the card's numbers.  On CPU tensors the kernels' wrappers run their
+plain versions, so every choice computes the same function.
 """
 
 from __future__ import annotations
@@ -68,8 +70,12 @@ def make_gradient_penalty(mcfg):
         from levelgan_torch.kernels.gp_penalty import gradient_penalty_core
         return gradient_penalty_core
     if choice == "fused":
-        raise NotImplementedError(
-            "model.pallas_gp='fused' (the fused critic-gradient kernel, "
-            "levelgan/kernels/critic_grad.py) is not ported yet: it is the "
-            "K2 fused slice (wgan_gp_32); use 'auto', 'core' or 'xla'")
+        from levelgan_torch.kernels.critic_grad import (
+            fused_supported, gradient_penalty_fused)
+        if not fused_supported(mcfg):
+            raise ValueError(
+                "model.pallas_gp='fused' but the fused critic-gradient "
+                "kernel does not support this critic shape; use 'core' or "
+                "'auto'")
+        return gradient_penalty_fused
     raise ValueError(f"unknown model.pallas_gp {choice!r}")

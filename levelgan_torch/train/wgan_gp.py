@@ -16,9 +16,8 @@ In the critic loop the fake batch is made under ``torch.no_grad()`` (the
 forward kernels without residuals there; in the generator update they run
 as autograd Functions whose backward is the ported backward kernels.
 
-Not in this slice (each raises ``NotImplementedError``): the presence
-penalty (``train.w_presence``), conditional models and the cond-match loss
-(they need ``data/features.py``).
+Not ported yet (each raises ``NotImplementedError``): conditional models
+and the cond-match loss (they need ``data/features.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +30,9 @@ from levelgan_torch.lio.metrics import tile_histogram
 from levelgan_torch.models import sample_head
 from levelgan_torch.ops.grad_penalty import make_gradient_penalty
 from levelgan_torch.ops.gumbel import gumbel_noise
-from levelgan_torch.ops.presence import mbstd_scale_schedule
+from levelgan_torch.ops.presence import (excess_weight_schedule,
+                                         mbstd_scale_schedule,
+                                         presence_penalty)
 from levelgan_torch.train.gan import current_tau, prepare_real
 from levelgan_torch.train.state import GANState, update_ema
 
@@ -97,6 +98,10 @@ def make_critic_scan(cfg: Config, gp_impl):
         def d_apply(x, cond):
             return critic(x, cond, ms)
 
+        # without an mbstd channel the scale is unused, and the GP gets the
+        # module itself: the fused GP needs the critic's parameters
+        gp_critic = d_apply if m.critic_mbstd else critic
+
         if len(noises) != len(batch_ids):
             raise ValueError(f"{len(batch_ids)} critic batches but "
                              f"{len(noises)} noise draws")
@@ -108,7 +113,7 @@ def make_critic_scan(cfg: Config, gp_impl):
                                    m.structural_head, noise=nz["noise"])
             d_real = d_apply(real, cond)
             d_fake = d_apply(fake, cond)
-            gp = gp_impl(d_apply, real, fake, cond, nz["eps"])
+            gp = gp_impl(gp_critic, real, fake, cond, nz["eps"])
             wdist = d_real.mean() - d_fake.mean()
             loss = -wdist + t.gp_lambda * gp
             if live:   # freeze_critic_until: params and Adam state held
@@ -137,11 +142,6 @@ def make_wgan_gp_step(cfg: Config):
         raise NotImplementedError(
             "conditional WGAN-GP training (model.cond_dim, "
             "train.w_cond_match) needs data/features.py, not ported yet")
-    if t.w_presence:
-        raise NotImplementedError(
-            "train.w_presence > 0 needs presence_penalty "
-            "(ops/presence.py), which lands with the structural-head "
-            "training slice")
     critic_scan = make_critic_scan(cfg, make_gradient_penalty(m))
 
     def step_fn(state: GANState, batch_ids: torch.Tensor, noise=None,
@@ -161,6 +161,12 @@ def make_wgan_gp_step(cfg: Config):
                            m.structural_head, noise=ng["noise"])
         g_loss = -critic(fake, None, mbstd_scale_schedule(t, state.step)
                          ).mean()
+        pres = None
+        if t.w_presence:
+            pres = presence_penalty(
+                fake, w_spread=t.presence_spread,
+                w_excess=excess_weight_schedule(t, state.step))
+            g_loss = g_loss + t.w_presence * pres
         params = list(gen.parameters())
         _apply_grads(params, torch.autograd.grad(g_loss, params),
                      state.opt_g)
@@ -169,6 +175,8 @@ def make_wgan_gp_step(cfg: Config):
         metrics = {**it, "g_loss": g_loss.detach(),
                    "gen_hist": tile_histogram(decode(fake.detach()),
                                               m.n_tiles)}
+        if pres is not None:
+            metrics["presence"] = pres.detach()
         return state, metrics
 
     return step_fn

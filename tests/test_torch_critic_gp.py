@@ -223,10 +223,22 @@ def test_gp_picker(choice, want):
     assert gp.make_gradient_penalty(tm) is want
 
 
-def test_gp_picker_fused_names_its_slice():
-    _, tm = _cfgs(pallas_gp="fused")
-    with pytest.raises(NotImplementedError, match="K2 fused"):
-        gp.make_gradient_penalty(tm)
+@pytest.mark.parametrize("kw,supported", [
+    ({"level_size": 16}, True), ({"level_size": 32}, True),
+    ({"level_size": 16, "cond_dim": 4, "cond_mode": "concat"}, True),
+    ({"level_size": 64}, False),
+    ({"level_size": 16, "cond_dim": 4, "cond_mode": "projection"}, False)],
+    ids=["16", "32", "16_concat", "64", "16_projection"])
+def test_gp_picker_fused_names_its_slice(kw, supported):
+    """'fused' is the fused GP where the kernel serves the critic and a
+    ``ValueError`` naming ``pallas_gp`` where it does not."""
+    from levelgan_torch.kernels.critic_grad import gradient_penalty_fused
+    _, tm = _cfgs(pallas_gp="fused", **kw)
+    if supported:
+        assert gp.make_gradient_penalty(tm) is gradient_penalty_fused
+    else:
+        with pytest.raises(ValueError, match="pallas_gp"):
+            gp.make_gradient_penalty(tm)
 
 
 def test_norm_penalty_wrappers_refuse_other_devices():

@@ -36,9 +36,13 @@ def _assert_close(a, b):
         float((a - b).abs().max())
 
 
+# the last three: the wgan_gp_32 stages (two groups per sample at up2)
 @pytest.mark.parametrize("b,h,ci,co,gs", [(3, 4, 128, 64, 16),
                                           (2, 8, 64, 32, 8),
-                                          (2, 16, 64, 64, 16)])
+                                          (2, 16, 64, 64, 16),
+                                          (4, 4, 256, 128, 16),
+                                          (4, 8, 128, 64, 16),
+                                          (4, 16, 64, 32, 16)])
 def test_k1_matches_plain(cuda, b, h, ci, co, gs):
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.ops.blocks import upsample_block
@@ -78,7 +82,10 @@ SUM_TOL = 2.0 ** -6
 
 @pytest.mark.parametrize("b,h,ci,co,gs", [(4, 4, 512, 256, 16),
                                           (4, 8, 256, 128, 16),
-                                          (2, 16, 128, 64, 8)])
+                                          (2, 16, 128, 64, 8),
+                                          (4, 4, 256, 128, 16),
+                                          (4, 8, 128, 64, 16),
+                                          (4, 16, 64, 32, 16)])
 def test_k1_bwd_matches_plain(cuda, b, h, ci, co, gs):
     from levelgan_torch.kernels import upsample_block as k1
     x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=2)
@@ -119,6 +126,122 @@ def test_norm_penalty_matches_plain(cuda):
     torch.testing.assert_close(k2.norm_penalty_bwd(g2, norm, ct),
                                k2.norm_penalty_bwd_plain(g2, norm_p, ct),
                                atol=1e-7, rtol=1e-5)
+
+
+def _trunk_inputs(b, m0, chans, has_gn, device, seed=4):
+    g = torch.Generator(device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    pre = randn(b, m0, m0, chans[0])
+    a0 = torch.where(pre >= 0, pre, 0.2 * pre)
+    layers = [(0.05 * randn(4, 4, ci, co), 0.1 * randn(co),
+               1 + 0.1 * randn(co) if has_gn else None,
+               0.1 * randn(co) if has_gn else None)
+              for ci, co in zip(chans[:-1], chans[1:])]
+    return a0, layers, 0.05 * randn(4, 4, chans[-1])
+
+
+# K2 fused, per sample (chip_smoke.py's rule): the two sides sum in another
+# order, so now and then a GroupNorm output of the last trunk layer lands on
+# the other side of zero, the LeakyReLU mask flips and a patch of that
+# sample's dy0 moves by a few percent
+FLIP_TOL = 0.1
+
+
+def _assert_samples_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    per = diff.amax(dim=tuple(range(1, diff.ndim))) / want.float().abs().max()
+    assert float(per.max()) <= FLIP_TOL
+    assert float(torch.quantile(per, 0.75, interpolation="higher")) <= SUM_TOL
+
+
+@pytest.mark.parametrize("b,m0,chans,has_gn,gs", [
+    (64, 16, (64, 128, 256), True, 16), (64, 8, (64, 128), True, 16),
+    (8, 16, (64, 128, 256), False, 16), (8, 8, (64, 128), True, 8),
+    (64, 16, (64, 64, 128), True, 8)],
+    ids=["wgan_gp_32", "16x16", "32x32_nonorm", "16x16_gs8", "32x32_narrow"])
+def test_k2_fused_matches_plain(cuda, b, m0, chans, has_gn, gs):
+    from levelgan_torch.kernels import critic_grad as k2f
+    a0, layers, head_w = _trunk_inputs(b, m0, chans, has_gn, cuda)
+    a0 = a0.to(torch.bfloat16)
+    n = k2f.launches
+    got = k2f.critic_trunk_grad(a0, layers, head_w, group_size=gs)
+    torch.cuda.synchronize()
+    assert k2f.launches == n + 1
+    assert got.shape == a0.shape and got.dtype == torch.bfloat16
+    want = k2f.critic_trunk_grad_plain(a0, layers, head_w, group_size=gs)
+    _assert_samples_close(got, want)
+    # the border rows and columns are where a wrong tap offset shows
+    for edge in (got[:, 0], got[:, -1], got[:, :, 0], got[:, :, -1]):
+        assert bool(edge.float().abs().max() > 0)
+
+
+def test_k2_fused_probe_stamps_every_phase(cuda):
+    from levelgan_torch.kernels import critic_grad as k2f
+    a0, layers, head_w = _trunk_inputs(4, 16, (64, 128, 256), True, cuda)
+    probe = torch.zeros(10, dtype=torch.int64, device=cuda)
+    got = k2f.critic_trunk_grad(a0.to(torch.bfloat16), layers, head_w,
+                                probe=probe)
+    want = k2f.critic_trunk_grad(a0.to(torch.bfloat16), layers, head_w)
+    assert torch.equal(got, want)               # the probe changes nothing
+    stamps = probe.tolist()
+    assert len(k2f.phase_names(2)) == len(stamps) - 1
+    assert all(b > a > 0 for a, b in zip(stamps, stamps[1:]))
+    with pytest.raises(ValueError, match="probe"):
+        k2f.critic_trunk_grad(a0.to(torch.bfloat16), layers, head_w,
+                              probe=probe[:4])
+
+
+def test_k2_fused_raises_for_f32_and_bad_shapes(cuda):
+    from levelgan_torch.kernels import critic_grad as k2f
+    a0, layers, head_w = _trunk_inputs(2, 8, (64, 128), True, cuda)
+    n = k2f.launches
+    with pytest.raises(ValueError, match="bf16"):
+        k2f.critic_trunk_grad(a0, layers, head_w)            # f32 a0
+    a0 = a0.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="group_size"):
+        k2f.critic_trunk_grad(a0, layers, head_w, group_size=4)
+    with pytest.raises(ValueError, match="trunk layers"):
+        k2f.critic_trunk_grad(a0, layers * 2, head_w)
+    narrow = _trunk_inputs(2, 8, (32, 64), True, cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        k2f.critic_trunk_grad(narrow[0].to(torch.bfloat16), *narrow[1:])
+    assert k2f.launches == n
+
+
+def test_fused_gp_matches_plain_gp_at_wgan_gp_32(cuda):
+    """The fused GP's value and its gradient for every critic parameter
+    against the plain GP, both in bf16 on the card."""
+    from levelgan_torch.config import preset
+    from levelgan_torch.kernels import critic_grad as k2f
+    from levelgan_torch.models import Critic
+    from levelgan_torch.ops.grad_penalty import gradient_penalty
+
+    m = preset("wgan_gp_32").model
+    critic = Critic(m).init_params(torch.Generator().manual_seed(0)).to(cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    shape = (16, m.level_size, m.level_size, m.n_tiles)
+    real = torch.nn.functional.one_hot(
+        torch.randint(0, m.n_tiles, shape[:3], generator=g, device=cuda),
+        m.n_tiles).float()
+    fake = torch.softmax(torch.randn(shape, generator=g, device=cuda), -1)
+    eps = torch.rand((16, 1, 1, 1), generator=g, device=cuda)
+    params = list(critic.parameters())
+    n = k2f.launches
+    val = k2f.gradient_penalty_fused(critic, real, fake, None, eps)
+    grads = torch.autograd.grad(val, params, allow_unused=True)
+    assert k2f.launches == n + 1
+    ref = gradient_penalty(critic, real, fake, None, eps)
+    ref_g = torch.autograd.grad(ref, params, allow_unused=True)
+    assert abs(float(val.detach()) - float(ref.detach())) <= 0.02 * abs(
+        float(ref.detach()))
+    for (name, _), a, r in zip(critic.named_parameters(), grads, ref_g):
+        if r is None:
+            assert a is None or not bool(a.abs().max() > 0), name
+        else:
+            assert _rel_err(a, r) <= 0.05, name
 
 
 def test_kernel_generator_backward_reaches_every_parameter(cuda):

@@ -19,7 +19,8 @@ _MODULES = [
     "levelgan_torch.data.augment", "levelgan_torch.data.dataset",
     "levelgan_torch.lio.metrics", "levelgan_torch.train.state",
     "levelgan_torch.train.gan", "levelgan_torch.train.wgan_gp",
-    "levelgan_torch.api", "levelgan_torch.cli.train", "chip_smoke",
+    "levelgan_torch.api", "levelgan_torch.cli.train",
+    "levelgan_torch.kernels.critic_grad", "chip_smoke",
 ]
 
 

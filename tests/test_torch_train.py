@@ -58,9 +58,10 @@ def _flat(tree, prefix):
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _jax_draws(jcfg, state, logits_shape):
+def _jax_draws(jcfg, state):
     """The draws the JAX step makes from ``state.rng`` at ``state.step``."""
     m = jcfg.model
+    size = m.level_size
     base = jax.random.fold_in(state.rng, state.step)
     iter_keys = jax.random.split(jax.random.fold_in(base, 0), N_CRITIC)
     k_zg, k_sg = jax.random.split(jax.random.fold_in(base, 1))
@@ -68,31 +69,40 @@ def _jax_draws(jcfg, state, logits_shape):
     def t(a):
         return torch.from_numpy(np.array(a))
 
+    def head_noise(key):
+        """``sample_head``'s Gumbel draws: one for the plain head, the
+        (base, START, GOAL) triple of the spatial structural head."""
+        shape = (B, size, size, m.n_tiles)
+        if m.structural_head != "spatial":
+            return t(jax.random.gumbel(key, shape, jnp.float32))
+        k_base, k_s, k_g = jax.random.split(key, 3)
+        return (t(jax.random.gumbel(k_base, shape, jnp.float32)),
+                t(jax.random.gumbel(k_s, (B, size * size), jnp.float32)),
+                t(jax.random.gumbel(k_g, (B, size * size), jnp.float32)))
+
     its = []
     for k in iter_keys:
         k_aug, k_z, k_s, k_eps = jax.random.split(k, 4)
         its.append({
             "elements": t(jax.random.randint(k_aug, (B,), 0, 8)),
             "z": t(jax.random.normal(k_z, (B, m.latent_dim), jnp.float32)),
-            "noise": t(jax.random.gumbel(k_s, logits_shape, jnp.float32)),
+            "noise": head_noise(k_s),
             "eps": t(jax.random.uniform(k_eps, (B, 1, 1, 1), jnp.float32))})
     return {"critic": its, "g": {
         "z": t(jax.random.normal(k_zg, (B, m.latent_dim), jnp.float32)),
-        "noise": t(jax.random.gumbel(k_sg, logits_shape, jnp.float32))}}
+        "noise": head_noise(k_sg)}}
 
 
-@pytest.mark.parametrize("kw", [{}, {"pallas_gp": "xla",
-                                    "critic_mbstd": "input"}],
-                         ids=["core_gp", "plain_gp_mbstd_input"])
-def test_one_wgan_gp_step_matches_jax(kw):
-    """The port's picker runs ``kw['pallas_gp']``; the JAX step its oracle."""
-    jcfg, cfg = _cfgs()
-    jcfg = jcfg.override(**{f"model.{k}": v for k, v in kw.items()})
+def check_one_step_matches_jax(jcfg, extra_metrics=()):
+    """One whole step of the port against the JAX step from the same
+    parameters, batch and draws: the metrics at rtol 1e-4, the parameters
+    after Adam within lr / 10."""
     cfg = Config.from_dict(jcfg.to_dict())
     m = jcfg.model
+    size = m.level_size
     j_state = j_create_state(jcfg, jax.random.key(0))
-    ids = synthetic_corpus(N_CRITIC * B, LEVEL, seed=3).reshape(
-        N_CRITIC, B, LEVEL, LEVEL)
+    ids = synthetic_corpus(N_CRITIC * B, size, seed=3).reshape(
+        N_CRITIC, B, size, size)
     j_new, j_met = jax.jit(j_make_step(jcfg))(j_state, jnp.asarray(ids))
 
     before = {**_flat(j_state.generator, "generator"),
@@ -102,12 +112,13 @@ def test_one_wgan_gp_step_matches_jax(kw):
     critic = Critic(cfg.model)
     critic.load_state_dict(critic_params_from_flat(before))
     state = tstate.create_state(cfg, "cpu", generator=gen, critic=critic)
-    noise = _jax_draws(jcfg, j_state, (B, LEVEL, LEVEL, m.n_tiles))
+    noise = _jax_draws(jcfg, j_state)
     state, met = make_wgan_gp_step(cfg)(state, torch.from_numpy(ids),
                                         noise=noise)
 
     assert state.step == 1
-    for k in ("d_loss", "g_loss", "gp", "wdist"):
+    assert set(met) == set(j_met)
+    for k in ("d_loss", "g_loss", "gp", "wdist") + tuple(extra_metrics):
         np.testing.assert_allclose(float(met[k]), float(j_met[k]), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
     np.testing.assert_array_equal(met["gen_hist"].numpy(),
@@ -134,6 +145,17 @@ def test_one_wgan_gp_step_matches_jax(kw):
         np.testing.assert_allclose(got[k] - old, w - old, atol=LR / 10,
                                    rtol=0, err_msg=k)
         assert np.abs(got[k] - old).max() <= cap[k.split("/")[0]] * 1.001, k
+    return met
+
+
+@pytest.mark.parametrize("kw", [{}, {"pallas_gp": "xla",
+                                    "critic_mbstd": "input"}],
+                         ids=["core_gp", "plain_gp_mbstd_input"])
+def test_one_wgan_gp_step_matches_jax(kw):
+    """The port's picker runs ``kw['pallas_gp']``; the JAX step its oracle."""
+    jcfg, _ = _cfgs()
+    check_one_step_matches_jax(
+        jcfg.override(**{f"model.{k}": v for k, v in kw.items()}))
 
 
 def test_freeze_critic_until_holds_critic_and_its_adam():
@@ -233,7 +255,6 @@ def test_create_state_inits_and_copies_ema():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"train.w_presence": 1.0}, "presence"),
     ({"model.cond_dim": 4}, "features"),
 ])
 def test_step_raises_for_later_slices(override, match):
