@@ -10,6 +10,8 @@ Needs one CUDA card (exits non-zero without one, and without the
    B = 1024, bf16: each kernel against its plain PyTorch version (max abs
    error against a stated bf16 tolerance), kernel / plain / library-call
    median times (CUDA events, warm-up excluded) and the roofline bound;
+   for K1 also the chosen tile and the call's time without its copies and
+   without its products (two measuring builds);
 4. the export path: a gumbel_64 generator with seeded random weights is
    written as a FORMAT.md checkpoint and exported through the port's CLI
    (65,536 levels at batch 1024); the levels are checked, the kernels'
@@ -18,11 +20,11 @@ Needs one CUDA card (exits non-zero without one, and without the
 5. a torch.profiler breakdown of one export batch (device time by kernel,
    device idle share) and the host's D2H and unpack times;
 6. training kernel parity + timing at the training shapes (B = 64) of
-   gumbel_64 and wgan_gp_32: K1 bwd at every stage it serves (on residuals
-   from K1 forward; at wgan_gp_32 K1 forward too), K1L bwd at gumbel_64
-   up3 and up2, K2 core fwd / bwd on [64, 32768] and [64, 8192] f32, and
-   K2 fused (the critic trunk's forward and input gradient) at the 32x32
-   and 16x16 critics, with GroupNorm off and with group size 8 as well;
+   gumbel_64 and wgan_gp_32: K1 forward and K1 bwd (whole and by launch,
+   on residuals from K1 forward) at every stage they serve, K1L bwd at
+   gumbel_64 up3 and up2, K2 core fwd / bwd on [64, 32768] and [64, 8192]
+   f32, and K2 fused (the critic trunk's forward and input gradient) at
+   the 32x32 and 16x16 critics, with GroupNorm off and with group size 8;
    each against its plain version, with kernel / plain / library device
    times (CUDA events around calls queued behind a spin kernel,
    ``queued_ms``) and bounds; and the gradient-penalty implementations
@@ -277,6 +279,18 @@ def read_counts() -> dict:
     return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
+def warm_card(device, seconds: float = 0.5) -> None:
+    """Keep the card busy for a while: after the idle minutes of a build its
+    clocks are down, and the first kernel timed would pay for that."""
+    import torch
+    a = torch.randn((4096, 4096), device=device, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a @ a
+        torch.cuda.synchronize()
+
+
 def kernel_parity(cfg, device):
     """Phase 3: per (kernel, stage) parity + timing records."""
     import torch
@@ -285,6 +299,7 @@ def kernel_parity(cfg, device):
     from levelgan_torch.kernels import upsample_rows as k1l
     from levelgan_torch.ops.blocks import upsample_block
 
+    warm_card(device)
     gs = cfg.model.group_size
     slope = cfg.model.leaky_slope
     rows = []
@@ -299,8 +314,8 @@ def kernel_parity(cfg, device):
             kernels.append("K1L")    # K1L held at a second shape
         for kern in kernels:
             if kern == "K1":
-                run = lambda: k1.upsample_block_fwd(   # noqa: E731
-                    x, w, gamma, beta, slope=slope, group_size=gs)
+                run = lambda **kw: k1.upsample_block_fwd(   # noqa: E731
+                    x, w, gamma, beta, slope=slope, group_size=gs, **kw)
                 plain = lambda: upsample_block(        # noqa: E731
                     x, w, gamma, beta, slope=slope, group_size=gs,
                     compute_dtype=torch.bfloat16)
@@ -351,8 +366,37 @@ def kernel_parity(cfg, device):
             print(f"  {kern} {name} B={B} {h}x{h}x{ci}->{2 * h}x{2 * h}x{co}: "
                   f"max_abs_err={err:.4g} ms={t_k:.4f} plain_ms={t_p:.4f} "
                   f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            if kern == "K1":
+                print("    " + k1_fwd_split(B, h, ci, co, gs, w, run,
+                                            median_ms))
             rows.append(rec)
     return rows
+
+
+def k1_fwd_split(b, h, ci, co, gs, w, run, timer) -> str:
+    """Where a K1 forward call's time goes: the chosen tile, the first
+    block's phases by ``run(probe=...)``'s time stamps, and the packing of
+    the weight (timed with ``timer``), which a call pays only after the
+    weight changed."""
+    import torch
+    from levelgan_torch.kernels import upsample_block as k1
+    sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+    ns, ng, stages = k1.fwd_tile(b, h, h, ci, co, gs, sms)
+    threads = 2 * (-(-ns * h * h // 64) * 64)
+    t_pack = timer(lambda: k1.pack_taps_chunks(w))
+    probe = torch.zeros(len(k1.FWD_PHASES) + 1, dtype=torch.int64,
+                        device=w.device)
+    run(probe=probe)
+    torch.cuda.synchronize()
+    stamps = probe.tolist()
+    return (f"tile (NS, NG, stages) = ({ns}, {ng}, {stages}): {threads} "
+            f"threads and {k1.fwd_smem(h, h, ns, stages)} bytes of shared "
+            f"memory a block, {-(-b // ns) * -(-co // k1.NB)} blocks; "
+            "first block by phase (us): "
+            + ", ".join(f"{ph} {(t1 - t0) / 1e3:.2f}" for ph, t0, t1 in zip(
+                k1.FWD_PHASES, stamps, stamps[1:]))
+            + f"; packing the weight (PyTorch ops, once per weight version, "
+            f"not in ms) {t_pack:.5f} ms")
 
 
 def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
@@ -370,7 +414,7 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     ckpt = save_checkpoint(os.path.join(workdir, "ckpt"), gen, cfg, step=0)
     out = os.path.join(workdir, "levels.npz")
 
-    k1.launches = k1l.launches = 0
+    k1.launches = k1l.launches = k1.packs = 0
     t0 = time.perf_counter()
     rc = cli.main(["--ckpt", ckpt, "--n", str(n_levels), "--batch",
                    str(batch), "--out", out, "--seed", "0"])
@@ -394,20 +438,28 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
               "K1L": n_batches * (len(fits) - sum(fits))}
     if counts != expect:
         fail(f"kernel launches {counts} != expected {expect}")
+    # the weights never change during an export: one packing per K1 stage
+    if k1.packs != sum(fits):
+        fail(f"the export packed K1 weights {k1.packs} times, expected "
+             f"{sum(fits)} (once per K1 stage)")
     hist = np.bincount(levels.reshape(-1), minlength=m.n_tiles) / levels.size
     print(f"  exported {n_levels} levels through the CLI in {wall:.3f} s "
           f"(wall, incl. checkpoint load and .npz write); launches {counts}; "
           f"tile histogram {np.round(hist, 4).tolist()}")
 
-    # warm throughput of the same call the CLI makes, without file I/O
-    gen = gen.to(device)
+    # warm throughput of the same call the CLI makes (the generator built
+    # from the checkpoint's state_dict inside generate), without file I/O
+    _, params = cli.load_generator(ckpt)
+    k1.packs = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    generate(cfg, gen, n_levels, seed=1, batch_size=batch, device=device)
+    generate(cfg, params, n_levels, seed=1, batch_size=batch, device=device)
     torch.cuda.synchronize()
     lps = n_levels / (time.perf_counter() - t0)
     print(f"  warm export: {lps:.1f} levels/s ({n_levels} levels, batch "
-          f"{batch}, packed D2H + host unpack included)")
+          f"{batch}, generator load, packed D2H + host unpack included; "
+          f"{k1.packs} weight packings)")
+    gen = gen.to(device)
 
     # one batch through the kernels vs the plain path, same z and noise
     g = torch.Generator(device).manual_seed(7)
@@ -437,17 +489,21 @@ def profile_export(cfg, device, batches=4):
     time by kernel, device busy share, host-side D2H and unpack)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from levelgan_torch.export import generate_batch, unpack_levels
+    from levelgan_torch.export import (generate_batch, make_generator,
+                                       unpack_levels)
+    from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.models import Generator
 
     m = cfg.model
-    gen = Generator(cfg.model).init_params(
-        torch.Generator().manual_seed(0)).to(device)
+    # the generator as generate() makes it for the CLI: from a state_dict
+    gen = make_generator(cfg, Generator(cfg.model).init_params(
+        torch.Generator().manual_seed(0)).state_dict(), device)
     g = torch.Generator(device).manual_seed(3)
     zs = [torch.randn((B, m.latent_dim), generator=g, device=device)
           for _ in range(batches + 1)]
     generate_batch(gen, cfg, zs[-1], generator=g, pack=True)   # warm-up
     torch.cuda.synchronize()
+    k1.packs = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -455,6 +511,8 @@ def profile_export(cfg, device, batches=4):
             generate_batch(gen, cfg, z, generator=g, pack=True)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / batches
+    if k1.packs:
+        fail(f"{k1.packs} weight packings in {batches} warm export batches")
 
     rows = device_rows(prof)
     if not rows:
@@ -516,9 +574,9 @@ def record(rows, config, kern, stage, shape, errs, run, plain, library,
 def train_kernel_parity(cfg, device, rows):
     """Phase 6: the training-path kernels at ``cfg``'s training shapes
     (B = 64), each against its plain version, with kernel / plain /
-    library device times (``queued_ms``) and bounds.  gumbel_64 also holds
-    K1L bwd at a second shape (up2); the other presets also hold K1
-    forward, which the export phase holds only at gumbel_64's stages."""
+    library device times (``queued_ms``) and bounds, K1 forward included
+    (the export phase holds it at B = 1024 only).  gumbel_64 also holds K1L
+    bwd at a second shape (up2)."""
     import torch
     import torch.nn.functional as F
     from levelgan_torch.kernels import gp_penalty as k2
@@ -540,16 +598,17 @@ def train_kernel_parity(cfg, device, rows):
         kernels = ["K1 bwd"] if fits else ["K1L bwd"]
         if first and name == "up2":
             kernels.append("K1L bwd")    # K1L bwd held at a second shape
-        if fits and not first:
+        if fits:
             kernels.insert(0, "K1")
         for kern in kernels:
             if kern == "K1":
                 x_nchw = x.permute(0, 3, 1, 2).contiguous()
                 gamma16, beta16 = gamma.to(bf16), beta.to(bf16)
 
-                def run():
+                def run(**kw):
                     return k1.upsample_block_fwd(x, w, gamma, beta,
-                                                 slope=slope, group_size=gs)
+                                                 slope=slope, group_size=gs,
+                                                 **kw)
 
                 def plain():
                     return upsample_block(x, w, gamma, beta, slope=slope,
@@ -572,6 +631,8 @@ def train_kernel_parity(cfg, device, rows):
                        run, plain, library, flops,
                        x.numel() * 2 + 16 * ci * co * 2 + 2 * co * 4
                        + b * 4 * h * h * co * 2)
+                print("    " + k1_fwd_split(b, h, ci, co, gs, w, run,
+                                            queued_ms))
                 continue
             if kern == "K1 bwd":
                 _, ypre, mu, rstd = k1.upsample_block_fwd(
@@ -626,6 +687,19 @@ def train_kernel_parity(cfg, device, rows):
                 nbytes = dyf.numel() * 2 + b * h * h * ci * 2 + 16 * ci * co * 2
             record(rows, name_cfg, kern, name, [b, h, h, ci, co], errs, run,
                    plain, library, flops, nbytes)
+            if kern == "K1 bwd":
+                # the call's two launches, each alone
+                gn_args = (g, ypre, mu, rstd, gamma, beta, slope, gs)
+                dy_k, s1_k, s2_k = k1.bwd_gn_pass(*gn_args)
+                t_gn = queued_ms(lambda: k1.bwd_gn_pass(*gn_args))
+                t_dx = queued_ms(lambda: k1.bwd_dx_pass(dy_k, w, s1_k, s2_k))
+                tile = k1.dx_tile(b, h, h, ci, co, torch.cuda.
+                                  get_device_properties(device).
+                                  multi_processor_count)
+                print(f"    of that: the GroupNorm pass {t_gn:.5f} ms, the dx "
+                      f"GEMM with dgamma / dbeta {t_dx:.5f} ms at tile (nsd, "
+                      f"rt) = {tile}, {k1.dx_smem(h, *tile)} bytes of shared "
+                      "memory a block")
 
     # K2 core on the critic's flattened input gradient [64, H * W * n_tiles]
     gen = torch.Generator(device).manual_seed(400)
@@ -1088,7 +1162,9 @@ def kernels_line(records, counts, train_records, train_counts):
     of the configuration that runs them (gumbel_64; wgan_gp_32 for K2
     fused), with the launches of all training runs; where the kernel was
     also held at another configuration's shapes, ``at_<configuration>``
-    holds the same sums there.  Errors are the max over those stages."""
+    holds the same sums there (for K1 forward ``at_gumbel_64_training``
+    too: its B = 64 shapes beside the export entry).  Errors are the max
+    over those stages."""
     meta = {
         "K1": ("upsample_block_fwd", "levelgan_torch/csrc/upsample_block.cu",
                "levelgan/kernels/upsample_block.py:304"),
@@ -1136,7 +1212,11 @@ def kernels_line(records, counts, train_records, train_counts):
             launches = sum(by_run.values())
         else:
             by_run, launches = {"gumbel_64 export": counts[kern]}, counts[kern]
-            pool += [r for r in train_records if r["kernel"] == kern]
+            # the B = 64 records of gumbel_64 get an entry of their own,
+            # beside the export entry of the same configuration
+            pool += [{**r, "config": r["config"] + "_training"}
+                     if r["config"] == home else r
+                     for r in train_records if r["kernel"] == kern]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": repl, "launches": launches,
                  **sums([r for r in pool if r.get("config", home) == home]),

@@ -164,17 +164,19 @@ extern "C" int upsample_rows_fwd(const void* x, const void* wt, void* yf,
 }
 
 // K1L backward: dyf [B,H,W,4Co] bf16 (the folded pre-norm cotangent, channel
-// block 2a+b = parity (a, b)), wb [16,Ci,Co] bf16 -> dx [B,H,W,Ci] bf16,
-// by the gather GEMM of stage_common.cuh read straight from the folded
-// layout: no zero-padded copy of dyf and no 9-shift packed weights with
-// structured zeros (the TPU kernel's _pack_w_bwd); each parity multiplies
-// only its own 4 taps.  What bounds it on an H100 at gumbel_64 up3
-// (B = 64): 4.29 GFLOP against 25 MB of dyf in and dx out, so the bytes.
-// The caller checks the shape rules (Ci % 32 == 0, Co % 32 == 0 and the dx
-// tiling rule).  Returns cudaGetLastError().
-extern "C" int upsample_rows_bwd(const void* dyf, const void* wb, void* dx,
-                                 int B, int H, int W, int Ci, int Co,
-                                 void* stream) {
+// block 2a+b = parity (a, b)), wpk (the weight packed by dx steps,
+// [Ci/32][parity][Co/32][tap][32][32] bf16) -> dx [B,H,W,Ci] bf16, by the
+// gather GEMM of stage_common.cuh read straight from the folded layout: no
+// zero-padded copy of dyf and no 9-shift packed weights with structured
+// zeros (the TPU kernel's _pack_w_bwd); each parity multiplies only its own
+// 4 taps.  What bounds it on an H100 at gumbel_64 up3 (B = 64): 4.29 GFLOP
+// against 25 MB of dyf in and dx out, so the bytes.  A block takes nsd whole
+// samples or rt rows of one; the caller checks the shape rules of
+// launch_dx_gather.  Returns cudaGetLastError().
+extern "C" int upsample_rows_bwd(const void* dyf, const void* wpk, void* dx,
+                                 int B, int H, int W, int Ci, int Co, int nsd,
+                                 int rt, void* stream) {
   return static_cast<int>(lgt::launch_dx_gather<true>(
-      dyf, wb, dx, B, H, W, Ci, Co, static_cast<cudaStream_t>(stream)));
+      dyf, wpk, dx, nullptr, nullptr, nullptr, nullptr, B, H, W, Ci, Co, nsd,
+      rt, static_cast<cudaStream_t>(stream)));
 }

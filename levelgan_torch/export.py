@@ -129,7 +129,6 @@ def generate_batch(gen: Generator, cfg: Config, z: torch.Tensor, cond=None, *,
     return pack_levels(ids, tile_bits(cfg.model.n_tiles)) if pack else ids
 
 
-@torch.inference_mode()
 def generate(cfg: Config, params, n: int, *, seed: int = 0,
              batch_size: int = 1024, cond=None, pack: bool | None = None,
              repair: bool | None = None, device=None, z=None,
@@ -140,6 +139,10 @@ def generate(cfg: Config, params, n: int, *, seed: int = 0,
     packs on the device when the vocabulary fits under 8 bits and H*W is a
     multiple of 8.  ``z`` [n, latent_dim] and ``noise`` (shaped as
     ``sample_head`` takes it, over n levels) replace the generator's draws.
+
+    Only ``generate_batch`` runs under ``torch.inference_mode``: a generator
+    built here from a ``state_dict`` holds ordinary tensors, whose version
+    counters let the kernels keep their packed weights across the batches.
     """
     _check_slice(cfg, repair)
     dev = resolve_device(device)

@@ -31,7 +31,8 @@ LeakyReLU + GroupNorm backward in plain PyTorch in folded layout, from the
 saved yf and the per-(sample, channel) mean / rstd (XLA in the JAX
 package); then the kernel ``upsample_rows_bwd`` for dx from the folded
 cotangent (the function of ``_conv_bwd``, read from the folded layout by
-the same gather GEMM as K1 bwd's phase (b), without the TPU's 9-shift
+the same gather GEMM as K1 bwd's dx launch: ``dx_tile`` picks its tile,
+the weight is packed by steps once per version; without the TPU's 9-shift
 packed weights and their structured zeros); then ``weight_grad_folded``
 with torch matmuls.  At gumbel_64 up3 (B = 64) dx is 4.29 GFLOP against
 16.8 MB of dyf in and 8.4 MB of dx out: the bytes bound it (~7.5 us).
@@ -48,7 +49,8 @@ import torch
 
 from levelgan_torch.kernels import build
 from levelgan_torch.kernels.upsample_block import (KCB, NB_DX, dx_fits,
-                                                   pack_taps, pack_taps_bwd)
+                                                   dx_tile, pack_taps,
+                                                   pack_taps_dx, packed)
 from levelgan_torch.ops.blocks import (conv_transpose_2x,
                                        conv_transpose_2x_input_grad,
                                        leaky_relu, up)
@@ -102,7 +104,7 @@ def _lib():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bwd = lib.upsample_rows_bwd
-        bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
@@ -161,12 +163,14 @@ def upsample_rows_bwd(dyf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"K1L bwd shape rule violated: ci={ci} (multiple of {NB_DX}), "
             f"co={co} (multiple of {KCB}), H={h}, W={ww} (dx tiling rule)")
-    wb = pack_taps_bwd(w)
+    sms = torch.cuda.get_device_properties(dyf.device).multi_processor_count
+    nsd, rt = dx_tile(b, h, ww, ci, co, sms)
+    wpk = packed(w, pack_taps_dx)
     dx = torch.empty((b, h, ww, ci), dtype=torch.bfloat16, device=dyf.device)
     with torch.cuda.device(dyf.device):
         err = _lib().upsample_rows_bwd(
-            build.ptr(dyf), build.ptr(wb), build.ptr(dx), b, h, ww, ci, co,
-            build.stream_ptr(dyf.device))
+            build.ptr(dyf), build.ptr(wpk), build.ptr(dx), b, h, ww, ci, co,
+            nsd, rt, build.stream_ptr(dyf.device))
     build.check(err, "upsample_rows_bwd")
     global bwd_launches
     bwd_launches += 1

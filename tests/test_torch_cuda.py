@@ -277,3 +277,237 @@ def test_kernel_generator_backward_reaches_every_parameter(cuda):
     for (name, _), a, p, r in zip(gen.named_parameters(), got, plain, ref):
         assert a is not None and bool(a.abs().max() > 0), name
         assert _rel_err(a, r) <= 2 * _rel_err(p, r) + 0.02, name
+
+
+# ---- K1's tiles: ragged batches, sample independence, reproducibility -----
+
+# per plane size: (H, Ci, Co); weights from randn are symmetric in no axis
+K1_PLANES = {4: (4, 128, 64), 8: (8, 64, 64), 16: (16, 64, 32)}
+
+
+def _k1_fwd_all(k1, x, w, gamma, beta, gs):
+    return k1.upsample_block_fwd(x, w, gamma, beta, group_size=gs,
+                                 residuals=True)
+
+
+def _assert_fwd_matches_plain(k1, x, w, gamma, beta, gs):
+    y, ypre, mu, rstd = _k1_fwd_all(k1, x, w, gamma, beta, gs)
+    torch.cuda.synchronize()
+    y_p, ypre_p, mu_p, rstd_p = k1.upsample_block_fwd_plain(
+        x, w, gamma, beta, group_size=gs)
+    _assert_close(y, y_p)
+    _assert_close(ypre, ypre_p)
+    torch.testing.assert_close(mu, mu_p, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(rstd, rstd_p, atol=1e-3, rtol=1e-3)
+    assert torch.equal(
+        y, k1.upsample_block_fwd(x, w, gamma, beta, group_size=gs))
+
+
+@pytest.mark.parametrize("gs", [8, 16])
+@pytest.mark.parametrize("h", [4, 8, 16])
+def test_k1_fwd_ragged_batches_at_the_chosen_tile(cuda, h, gs):
+    """B = 1, 3, one more than the largest NS, and 64, at the tile the
+    wrapper chooses for each."""
+    from levelgan_torch.kernels import upsample_block as k1
+    _, ci, co = K1_PLANES[h]
+    for b in (1, 3, 256 // (h * h) + 1, 64):
+        x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=10 + b)
+        _assert_fwd_matches_plain(k1, x, w, gamma, beta, gs)
+
+
+@pytest.mark.parametrize("gs", [8, 16])
+@pytest.mark.parametrize("h,ns", [(4, 4), (4, 8), (4, 16), (8, 1), (8, 2),
+                                  (8, 4), (16, 1)])
+def test_k1_fwd_ragged_batches_at_every_tile(cuda, monkeypatch, h, ns, gs):
+    """Every NS the chooser can return, forced, with B not a multiple of it
+    (missing samples are zero-filled and never stored) and every ring
+    depth that fits."""
+    from levelgan_torch.kernels import upsample_block as k1
+    _, ci, co = K1_PLANES[h]
+    for stages in (2, 3):
+        if k1.fwd_smem(h, h, ns, stages) > k1.SMEM_MAX:
+            continue
+        monkeypatch.setattr(k1, "fwd_tile",
+                            lambda *a, st=stages: (ns, 32 // gs, st))
+        for b in (1, 3, ns + 1):
+            x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=20 + b)
+            _assert_fwd_matches_plain(k1, x, w, gamma, beta, gs)
+
+
+@pytest.mark.parametrize("co,gs", [(48, 16), (40, 8), (16, 16)])
+def test_k1_fwd_channels_beyond_a_block_are_masked(cuda, co, gs):
+    from levelgan_torch.kernels import upsample_block as k1
+    x, w, gamma, beta = _inputs(5, 8, 64, co, cuda, seed=30)
+    _assert_fwd_matches_plain(k1, x, w, gamma, beta, gs)
+
+
+def test_k1_fwd_shared_memory_formula_matches_the_source(cuda):
+    from levelgan_torch.kernels import upsample_block as k1
+    lib = k1._lib()
+    for h, ns, stages in [(4, 16, 2), (4, 4, 3), (8, 4, 3), (16, 1, 2)]:
+        assert lib.upsample_block_fwd_smem(h, h, ns, stages) == k1.fwd_smem(
+            h, h, ns, stages)
+
+
+def _k1_bwd_case(k1, b, h, ci, co, gs, device, seed):
+    x, w, gamma, beta = _inputs(b, h, ci, co, device, seed=seed)
+    _, ypre, mu, rstd = _k1_fwd_all(k1, x, w, gamma, beta, gs)
+    g = torch.randn(ypre.shape, device=device,
+                    generator=torch.Generator(device).manual_seed(seed + 1)
+                    ).to(torch.bfloat16)
+    return w, gamma, beta, mu, rstd, g, ypre
+
+
+def _assert_bwd_matches_plain(k1, args, gs):
+    got = k1.upsample_block_bwd(*args, group_size=gs)
+    torch.cuda.synchronize()
+    want = k1.upsample_block_bwd_plain(*args, group_size=gs)
+    for name, a, r in zip(("dx", "dy", "dgamma", "dbeta"), got, want):
+        assert _rel_err(a, r) <= SUM_TOL, name
+
+
+@pytest.mark.parametrize("gs", [8, 16])
+@pytest.mark.parametrize("h", [4, 8, 16])
+def test_k1_bwd_ragged_batches_at_the_chosen_tile(cuda, h, gs):
+    from levelgan_torch.kernels import upsample_block as k1
+    _, ci, co = K1_PLANES[h]
+    for b in (1, 3, 128 // (h * h) + 1, 64):
+        args = _k1_bwd_case(k1, b, h, ci, co, gs, cuda, seed=40 + b)
+        _assert_bwd_matches_plain(k1, args, gs)
+
+
+@pytest.mark.parametrize("h,nsd", [(4, 1), (4, 2), (4, 4), (4, 8), (8, 1),
+                                   (8, 2)])
+def test_k1_bwd_ragged_batches_at_every_tile(cuda, monkeypatch, h, nsd):
+    """Every sample count a dx block can take, forced, with B not a multiple
+    of it."""
+    from levelgan_torch.kernels import upsample_block as k1
+    _, ci, co = K1_PLANES[h]
+    monkeypatch.setattr(k1, "dx_tile", lambda *a: (nsd, h))
+    for b in (1, 3, nsd + 1):
+        args = _k1_bwd_case(k1, b, h, ci, co, 16, cuda, seed=50 + b)
+        _assert_bwd_matches_plain(k1, args, 16)
+
+
+@pytest.mark.parametrize("h", [4, 8, 16])
+def test_k1_samples_are_independent(cuda, h):
+    """Changing sample j leaves every other sample's y, ypre, mu, rstd, dx
+    and dy bit-identical: no halo bleeds into a neighbour, no statistic is
+    cut at the wrong row."""
+    from levelgan_torch.kernels import upsample_block as k1
+    _, ci, co = K1_PLANES[h]
+    b, j = 7, 2
+    x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=60)
+    x2 = x.clone()
+    x2[j] = torch.randn(x[j].shape, device=cuda).to(torch.bfloat16)
+    keep = [i for i in range(b) if i != j]
+    one = _k1_fwd_all(k1, x, w, gamma, beta, 16)
+    two = _k1_fwd_all(k1, x2, w, gamma, beta, 16)
+    for name, a, c in zip(("y", "ypre", "mu", "rstd"), one, two):
+        assert torch.equal(a[keep], c[keep]), name
+        assert not torch.equal(a[j], c[j]), name
+    _, ypre, mu, rstd = one
+    g = torch.randn(ypre.shape, device=cuda).to(torch.bfloat16)
+    g2, ypre2 = g.clone(), ypre.clone()
+    g2[j] = torch.randn(g[j].shape, device=cuda).to(torch.bfloat16)
+    ypre2[j] = two[1][j]
+    dx, dy, _, _ = k1.upsample_block_bwd(w, gamma, beta, mu, rstd, g, ypre)
+    dx2, dy2, _, _ = k1.upsample_block_bwd(w, gamma, beta, mu, rstd, g2,
+                                           ypre2)
+    for name, a, c in (("dx", dx, dx2), ("dy", dy, dy2)):
+        assert torch.equal(a[keep], c[keep]), name
+        assert not torch.equal(a[j], c[j]), name
+
+
+@pytest.mark.parametrize("b,h", [(64, 4), (5, 8), (3, 16)])
+def test_k1_is_bit_reproducible(cuda, b, h):
+    """No atomics in K1: two calls give the same bits, forward and
+    backward (dgamma / dbeta included)."""
+    from levelgan_torch.kernels import upsample_block as k1
+    _, ci, co = K1_PLANES[h]
+    x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=70)
+    one = _k1_fwd_all(k1, x, w, gamma, beta, 16)
+    two = _k1_fwd_all(k1, x, w, gamma, beta, 16)
+    for name, a, c in zip(("y", "ypre", "mu", "rstd"), one, two):
+        assert torch.equal(a, c), name
+    _, ypre, mu, rstd = one
+    g = torch.randn(ypre.shape, device=cuda).to(torch.bfloat16)
+    args = (w, gamma, beta, mu, rstd, g, ypre)
+    for name, a, c in zip(("dx", "dy", "dgamma", "dbeta"),
+                          k1.upsample_block_bwd(*args),
+                          k1.upsample_block_bwd(*args)):
+        assert torch.equal(a, c), name
+
+
+def test_k1_packed_weights_follow_in_place_updates(cuda):
+    """The packed weight is kept per weight version: after an optimizer
+    step on ``w`` the next forward and backward use the new values."""
+    from levelgan_torch.kernels import upsample_block as k1
+    x, w, gamma, beta = _inputs(4, 8, 64, 32, cuda, seed=80)
+    w = torch.nn.Parameter(w)
+    opt = torch.optim.SGD([w], lr=0.5)
+    _, ypre, mu, rstd = _k1_fwd_all(k1, x, w, gamma, beta, 16)
+    g = torch.randn(ypre.shape, device=cuda).to(torch.bfloat16)
+    dx = k1.upsample_block_bwd(w.detach(), gamma, beta, mu, rstd, g, ypre)[0]
+    w.grad = torch.randn_like(w)
+    opt.step()                                   # in place, as in training
+    out = _k1_fwd_all(k1, x, w, gamma, beta, 16)
+    want = k1.upsample_block_fwd_plain(x, w.detach(), gamma, beta)
+    assert not torch.equal(out[1], ypre)
+    _assert_close(out[0], want[0])
+    _assert_close(out[1], want[1])
+    dx2 = k1.upsample_block_bwd(w.detach(), gamma, beta, mu, rstd, g, ypre)[0]
+    assert not torch.equal(dx, dx2)
+    assert _rel_err(dx2, k1.upsample_block_bwd_plain(
+        w.detach(), gamma, beta, mu, rstd, g, ypre)[0]) <= SUM_TOL
+
+
+@pytest.mark.parametrize("b", [1, 3, 5])
+def test_k1l_bwd_matches_plain_at_odd_batches(cuda, b):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    _, w, _, _ = _inputs(b, 32, 64, 32, cuda, seed=90)
+    dyf = torch.randn((b, 32, 32, 128), device=cuda).to(torch.bfloat16)
+    assert _rel_err(k1l.upsample_rows_bwd(dyf, w),
+                    k1l.conv_rows_bwd_plain(dyf, w)) <= SUM_TOL
+
+
+def test_k1_fwd_probe_stamps_every_phase(cuda):
+    from levelgan_torch.kernels import upsample_block as k1
+    x, w, gamma, beta = _inputs(8, 8, 64, 32, cuda, seed=95)
+    probe = torch.zeros(len(k1.FWD_PHASES) + 1, dtype=torch.int64,
+                        device=cuda)
+    got = k1.upsample_block_fwd(x, w, gamma, beta, probe=probe)
+    assert torch.equal(got, k1.upsample_block_fwd(x, w, gamma, beta))
+    stamps = probe.tolist()
+    assert all(b >= a > 0 for a, b in zip(stamps, stamps[1:]))
+    assert stamps[-1] > stamps[0]
+    with pytest.raises(ValueError, match="probe"):
+        k1.upsample_block_fwd(x, w, gamma, beta, probe=probe[:2])
+
+
+def test_export_from_a_state_dict_packs_each_k1_weight_once(cuda):
+    """``generate`` given a state_dict, as the export CLI gives it, packs a
+    K1 weight once for all its batches, not once per launch."""
+    from levelgan_torch.config import preset
+    from levelgan_torch.export import generate
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.models import Generator
+    cfg = preset("toy_dcgan_16")
+    gen = Generator(cfg.model).init_params(torch.Generator().manual_seed(0))
+    n_k1 = sum(k1.fits(4 * 2 ** i, 4 * 2 ** i) for i in range(gen.n_stages))
+    k1.launches = k1.packs = 0
+    levels = generate(cfg, gen.state_dict(), 24, batch_size=4, device=cuda)
+    assert levels.shape == (24, 16, 16)
+    assert k1.launches == 6 * n_k1 and n_k1 > 0
+    assert k1.packs == n_k1
+
+
+def test_k1_packing_tells_a_transposed_weight_from_the_weight(cuda):
+    from levelgan_torch.kernels import upsample_block as k1
+    x, w, gamma, beta = _inputs(4, 8, 32, 32, cuda, seed=97)
+    wt = w.transpose(2, 3)                 # same pointer, same shape
+    first = k1.upsample_block_fwd(x, w, gamma, beta)
+    got = k1.upsample_block_fwd(x, wt, gamma, beta)
+    assert not torch.equal(got, first)
+    _assert_close(got, k1.upsample_block_fwd_plain(
+        x, wt.contiguous(), gamma, beta)[0])
