@@ -10,17 +10,23 @@ Needs one CUDA card (exits non-zero without one, and without the
    B = 1024, bf16: each kernel against its plain PyTorch version (max abs
    error against a stated bf16 tolerance), kernel / plain / library-call
    median times (CUDA events, warm-up excluded) and the roofline bound;
-   for K1 also the chosen tile and the call's time without its copies and
-   without its products (two measuring builds);
+   for K1 also the chosen tile and the first block's phases; for the K1L
+   stage (at up3 and at up2 as a second shape) its cluster and grid, its
+   residual mode (yf, mu, rstd) against the plain version and two calls
+   compared bit for bit; then the K1L stage as the generator calls it at
+   B = 1024 and 64 beside the library chain, with the device kernels of one
+   call by name (only the stage kernel may run);
 4. the export path: a gumbel_64 generator with seeded random weights is
    written as a FORMAT.md checkpoint and exported through the port's CLI
    (65,536 levels at batch 1024); the levels are checked, the kernels'
    launch counters must show every batch went through them, and one batch
    through the kernels is held against the plain path on the card;
 5. a torch.profiler breakdown of one export batch (device time by kernel,
-   device idle share) and the host's D2H and unpack times;
+   the port's kernels and PyTorch's own, device idle share) and the host's
+   D2H and unpack times;
 6. training kernel parity + timing at the training shapes (B = 64) of
-   gumbel_64 and wgan_gp_32: K1 forward and K1 bwd (whole and by launch,
+   gumbel_64 and wgan_gp_32: K1 forward, the K1L stage with residuals and
+   K1 bwd (whole and by launch,
    on residuals from K1 forward) at every stage they serve, K1L bwd at
    gumbel_64 up3 and up2, K2 core fwd / bwd on [64, 32768] and [64, 8192]
    f32, and K2 fused (the critic trunk's forward and input gradient) at
@@ -43,7 +49,10 @@ Needs one CUDA card (exits non-zero without one, and without the
 9. the warm step time from a device-synchronised loop of the same step,
    and a torch.profiler breakdown of training steps (device time by
    kernel, idle share, host time by op), for both configurations;
-10. print the ``kernels`` JSON line, the card line, and the final
+10. reproducibility: two seeded 3-step gumbel_64 runs through
+    ``api.train``, by default and under ``torch.use_deterministic_algorithms``,
+    compared array by array (and the first differing op named);
+11. print the ``kernels`` JSON line, the card line, and the final
     ``{"ok": true, "device": ...}`` line.
 
 ``--phases`` runs a subset (for bring-up); only the full run prints the
@@ -118,6 +127,9 @@ LOSS_TOL = 0.05
 # copy of the generator: kernels <= BF16_RATIO * plain bf16 + BF16_SLACK
 BF16_RATIO, BF16_SLACK = 2.0, 0.02
 SPIN_CYCLES = 20_000_000     # ~10 ms of SM clock: first spin of queued_ms
+# the port's kernels in a profile, by name
+OURS = ("upsample_block_fwd_kernel", "upsample_rows_stage_kernel", "k1_bwd_",
+        "dx_gather_kernel", "norm_penalty_", "critic_trunk_grad_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -176,6 +188,61 @@ def close(a, b) -> tuple[float, bool]:
     err = (a - b).abs()
     ok = bool(torch.all(err <= ATOL + RTOL * b.abs()))
     return float(err.max()), ok
+
+
+def library_stage(x, w, gamma, beta, gs, slope):
+    """The yardstick of a stage kernel (K1 fwd, the K1L stage): one chain
+    of PyTorch calls for the same function, ``F.conv_transpose2d`` +
+    ``F.group_norm`` + ``F.leaky_relu`` in bf16, NCHW."""
+    import torch
+    import torch.nn.functional as F
+    bf16 = torch.bfloat16
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    w_t = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
+    gamma16, beta16 = gamma.to(bf16), beta.to(bf16)
+
+    def library():
+        y = F.conv_transpose2d(x_nchw, w_t, stride=2, padding=1)
+        y = F.group_norm(y, w.shape[-1] // gs, gamma16, beta16, 1e-5)
+        return F.leaky_relu(y, slope)
+    return library
+
+
+def k1l_residuals_agree(k1l, x, w, gamma, beta, slope, gs, what) -> bool:
+    """The K1L stage's residual mode against its plain version (yf by the
+    bf16 rule, mu / rstd within 1e-4 of max |ref|, y equal to the export
+    mode's), and two calls bit for bit."""
+    import torch
+    one = k1l.upsample_block_rows(x, w, gamma, beta, slope=slope,
+                                  group_size=gs, residuals=True)
+    two = k1l.upsample_block_rows(x, w, gamma, beta, slope=slope,
+                                  group_size=gs, residuals=True)
+    want = k1l.upsample_block_rows_plain(x, w, gamma, beta, slope=slope,
+                                         group_size=gs, residuals=True)
+    y_only = k1l.upsample_block_rows(x, w, gamma, beta, slope=slope,
+                                     group_size=gs)
+    torch.cuda.synchronize()
+    yf_err, yf_ok = close(one[1], want[1])
+    stats = max(rel_err(one[2], want[2]), rel_err(one[3], want[3]))
+    same = all(torch.equal(a, c) for a, c in zip(one, two))
+    same_y = torch.equal(one[0], y_only)
+    print(f"  {what} residuals: yf max_abs_err={yf_err:.4g} ok={yf_ok}; "
+          f"mu/rstd max rel err {stats:.3g} (tol 1e-4); two calls "
+          f"bit-identical: {same}; y equal to the export mode's: {same_y}")
+    return yf_ok and stats <= 1e-4 and same and same_y
+
+
+def k1l_tile_line(b, h, ci, co, gs, device) -> str:
+    """The K1L stage's launch: cluster, grid, threads, shared memory."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    csize, stages = k1l.stage_tile(h, h, ci, co, gs)
+    maxc = k1l.max_clusters(device, csize, h, ci, stages)
+    ncl = k1l.stage_grid(b, co, maxc)
+    return (f"clusters of {csize} blocks (one per {k1l.MROWS // h} input "
+            f"rows), {ncl} persistent clusters ({ncl * csize} blocks; the "
+            f"card holds {maxc} at once), 256 threads and "
+            f"{k1l.stage_smem(h, ci, stages)} bytes of shared memory a block, "
+            f"a ring of {stages} chunks")
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -294,7 +361,6 @@ def warm_card(device, seconds: float = 0.5) -> None:
 def kernel_parity(cfg, device):
     """Phase 3: per (kernel, stage) parity + timing records."""
     import torch
-    import torch.nn.functional as F
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.kernels import upsample_rows as k1l
     from levelgan_torch.ops.blocks import upsample_block
@@ -306,9 +372,7 @@ def kernel_parity(cfg, device):
     for i, (name, h, ci, co) in enumerate(stage_shapes(cfg)):
         x, w, gamma, beta = stage_inputs(h, ci, co, device, seed=100 + i)
         flops = 2.0 * (2 * h) * (2 * h) * 4 * ci * co * B
-        x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        w_t = w.permute(2, 3, 0, 1).flip(2, 3).to(torch.bfloat16).contiguous()
-        gamma16, beta16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        library = library_stage(x, w, gamma, beta, gs, slope)
         kernels = ["K1"] if k1.fits(h, h) else ["K1L"]
         if name == "up2" and "K1L" not in kernels:
             kernels.append("K1L")    # K1L held at a second shape
@@ -320,38 +384,24 @@ def kernel_parity(cfg, device):
                     x, w, gamma, beta, slope=slope, group_size=gs,
                     compute_dtype=torch.bfloat16)
 
-                def library():
-                    y = F.conv_transpose2d(x_nchw, w_t, stride=2, padding=1)
-                    y = F.group_norm(y, co // gs, gamma16, beta16, 1e-5)
-                    return F.leaky_relu(y, slope)
-
                 err, ok = close(run(), plain())
                 nbytes = (x.numel() * 2 + 16 * ci * co * 2 + 2 * co * 4
                           + B * 4 * h * h * co * 2)
             else:
-                run = lambda: k1l.upsample_rows_fwd(x, w)  # noqa: E731
-                plain = lambda: k1l.conv_rows_plain(x, w)  # noqa: E731
-                library = lambda: F.conv_transpose2d(      # noqa: E731
-                    x_nchw, w_t, stride=2, padding=1)
-                yf_k, s1_k, s2_k = run()
-                yf_p, s1_p, s2_p = plain()
-                err, ok = close(yf_k, yf_p)
-                # f32 sums, atomics in any order
-                rel = max(float((s_k - s_p).abs().max() / s_p.abs().max())
-                          for s_k, s_p in ((s1_k, s1_p), (s2_k, s2_p)))
-                ok = ok and rel <= 1e-4
-                y_k = k1l.finish(yf_k, s1_k, s2_k, gamma, beta, slope=slope,
-                                 group_size=gs)
-                y_p = upsample_block(x, w, gamma, beta, slope=slope,
-                                     group_size=gs,
-                                     compute_dtype=torch.bfloat16)
-                stage_err, stage_ok = close(y_k, y_p)
-                print(f"  {kern} {name} s1/s2 max rel err {rel:.3g} (tol "
-                      f"1e-4); whole stage (kernel + finish) vs plain stage:"
-                      f" max_abs_err={stage_err:.4g} ok={stage_ok}")
-                ok = ok and stage_ok
-                nbytes = (x.numel() * 2 + 16 * ci * co * 2
-                          + B * h * h * 4 * co * 2 + 2 * B * co * 4)
+                def run():
+                    return k1l.upsample_block_rows(x, w, gamma, beta,
+                                                   slope=slope, group_size=gs)
+
+                def plain():
+                    return k1l.upsample_block_rows_plain(
+                        x, w, gamma, beta, slope=slope, group_size=gs)
+
+                err, ok = close(run(), plain())
+                ok = ok and k1l_residuals_agree(k1l, x, w, gamma, beta, slope,
+                                                gs, f"{kern} {name}")
+                print("    " + k1l_tile_line(B, h, ci, co, gs, x.device))
+                nbytes = (x.numel() * 2 + 16 * ci * co * 2 + 2 * co * 4
+                          + B * 4 * h * h * co * 2)
             torch.cuda.synchronize()
             if not ok:
                 fail(f"{kern} at {name} disagrees with its plain version "
@@ -371,6 +421,55 @@ def kernel_parity(cfg, device):
                                             median_ms))
             rows.append(rec)
     return rows
+
+
+def k1l_stage_timing(cfg, device, batches=(B, B_TRAIN), calls=5):
+    """The K1L stage as the generator calls it (``upsample_block_rows``) at
+    gumbel_64's K1L stage: its time at the export batch (CUDA-event median of
+    single calls) and at the training batch (``queued_ms``) beside the
+    library chain, and the device kernels of one call by name
+    (torch.profiler over ``calls`` calls).  Returns {batch: (ms, library
+    ms, names of the device kernels)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.kernels import upsample_rows as k1l
+
+    gs, slope = cfg.model.group_size, cfg.model.leaky_slope
+    name, h, ci, co = next(s for s in stage_shapes(cfg)
+                           if not k1.fits(s[1], s[1]))
+    out = {}
+    for b in batches:
+        x, w, gamma, beta = stage_inputs(h, ci, co, device, seed=150,
+                                         batch=b)
+        library = library_stage(x, w, gamma, beta, gs, slope)
+
+        def run():
+            return k1l.upsample_block_rows(x, w, gamma, beta, slope=slope,
+                                           group_size=gs)
+
+        timer = median_ms if b == B else queued_ms
+        t_s, t_l = timer(run), timer(library)
+        out[b] = (t_s, t_l)
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        out[b] += ([e.key for e in rows],)
+        busy = sum(dev_us(e) for e in rows) / 1e3 / calls
+        print(f"  K1L stage {name} B={b} (upsample_block_rows, "
+              f"{'CUDA-event median' if b == B else 'queued_ms'}): "
+              f"{t_s:.5f} ms; library chain {t_l:.5f} ms; by the profiler "
+              f"{busy:.5f} ms of device time a call in {sum(e.count for e in rows) // calls} "
+              "device ops:")
+        for e in rows:
+            print(f"    {dev_us(e) / 1e3 / calls:9.5f} ms  x{e.count // calls:<3d}"
+                  f" {e.key[:100]}")
+    return out
 
 
 def k1_fwd_split(b, h, ci, co, gs, w, run, timer) -> str:
@@ -438,10 +537,10 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
               "K1L": n_batches * (len(fits) - sum(fits))}
     if counts != expect:
         fail(f"kernel launches {counts} != expected {expect}")
-    # the weights never change during an export: one packing per K1 stage
-    if k1.packs != sum(fits):
-        fail(f"the export packed K1 weights {k1.packs} times, expected "
-             f"{sum(fits)} (once per K1 stage)")
+    # the weights never change during an export: one packing per stage
+    if k1.packs != len(fits):
+        fail(f"the export packed stage weights {k1.packs} times, expected "
+             f"{len(fits)} (once per stage)")
     hist = np.bincount(levels.reshape(-1), minlength=m.n_tiles) / levels.size
     print(f"  exported {n_levels} levels through the CLI in {wall:.3f} s "
           f"(wall, incl. checkpoint load and .npz write); launches {counts}; "
@@ -522,9 +621,15 @@ def profile_export(cfg, device, batches=4):
     print(f"  per batch ({B} levels): wall {wall_ms:.3f} ms (profiled), "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
-    for e in rows[:14]:
+    for e in rows[:24]:
         print(f"    {dev_us(e) / 1e3 / batches:8.3f} ms  x{e.count // batches:<3d}"
               f" {e.key[:90]}")
+    ours = sum(dev_us(e) for e in rows if any(o in e.key for o in OURS))
+    native = [e for e in rows if "at::native" in e.key]
+    print(f"  of that: the port's kernels {ours / 1e3 / batches:.3f} ms; "
+          f"PyTorch's own kernels (at::native) {len(native)} kinds, "
+          f"{sum(e.count for e in native) // batches} launches, "
+          f"{sum(dev_us(e) for e in native) / 1e3 / batches:.3f} ms")
 
     packed = generate_batch(gen, cfg, zs[0], generator=g, pack=True)
     torch.cuda.synchronize()
@@ -598,12 +703,15 @@ def train_kernel_parity(cfg, device, rows):
         kernels = ["K1 bwd"] if fits else ["K1L bwd"]
         if first and name == "up2":
             kernels.append("K1L bwd")    # K1L bwd held at a second shape
-        if fits:
-            kernels.insert(0, "K1")
+        kernels.insert(0, "K1" if fits else "K1L")
         for kern in kernels:
+            if kern == "K1L":
+                # the stage as training runs it: with its residuals
+                k1l_training_row(rows, name_cfg, name, x, w, gamma, beta,
+                                 slope, gs, flops)
+                continue
             if kern == "K1":
-                x_nchw = x.permute(0, 3, 1, 2).contiguous()
-                gamma16, beta16 = gamma.to(bf16), beta.to(bf16)
+                library = library_stage(x, w, gamma, beta, gs, slope)
 
                 def run(**kw):
                     return k1.upsample_block_fwd(x, w, gamma, beta,
@@ -613,12 +721,6 @@ def train_kernel_parity(cfg, device, rows):
                 def plain():
                     return upsample_block(x, w, gamma, beta, slope=slope,
                                           group_size=gs, compute_dtype=bf16)
-
-                def library():
-                    y = F.conv_transpose2d(x_nchw, wt_lib, stride=2,
-                                           padding=1)
-                    y = F.group_norm(y, co // gs, gamma16, beta16, 1e-5)
-                    return F.leaky_relu(y, slope)
 
                 y_k, y_p = run(), plain()
                 err, ok = close(y_k, y_p)
@@ -723,6 +825,39 @@ def train_kernel_parity(cfg, device, rows):
            lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
            lambda: torch.mul(g2, scale), 1.0 * b * f, 8.0 * b * f + 3 * 4 * b,
            PEAK_F32_FLOPS)
+
+
+def k1l_training_row(rows, config, stage, x, w, gamma, beta, slope, gs,
+                     flops):
+    """The K1L stage with residuals at a training shape against its plain
+    version, timed by ``queued_ms`` beside the library chain: y by the
+    bf16 rule, yf too, mu / rstd within 1e-4 of max |ref|."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+
+    b, h, _, ci = x.shape
+    co = w.shape[-1]
+    library = library_stage(x, w, gamma, beta, gs, slope)
+
+    def run():
+        return k1l.upsample_block_rows(x, w, gamma, beta, slope=slope,
+                                       group_size=gs, residuals=True)
+
+    def plain():
+        return k1l.upsample_block_rows_plain(x, w, gamma, beta, slope=slope,
+                                             group_size=gs, residuals=True)
+
+    got, want = run(), plain()
+    for name, a, r in zip(("y", "yf"), got, want):
+        err, ok = close(a, r)
+        if not ok:
+            fail(f"K1L at {config} {stage}: {name} disagrees with its plain "
+                 f"version (max abs err {err:.4g}, tol {ATOL}+{RTOL}*|ref|)")
+    errs = {**errs_of(("y", "yf"), got[:2], want[:2], SUM_TOL),
+            **errs_of(("mu", "rstd"), got[2:], want[2:], 1e-4)}
+    print("    " + k1l_tile_line(b, h, ci, co, gs, x.device))
+    record(rows, config, "K1L", stage, [b, h, h, ci, co], errs, run, plain,
+           library, flops, x.numel() * 2 + 16 * ci * co * 2 + 2 * co * 4
+           + 2 * b * 4 * h * h * co * 2 + 2 * b * co * 4)
 
 
 def trunk_inputs(m0, chans, has_gn, device, seed, batch=B_TRAIN):
@@ -962,6 +1097,107 @@ def train_path(name, overrides, steps, workdir):
     return counts
 
 
+def reproducibility(device, workdir, steps=3):
+    """Two seeded gumbel_64 runs of ``steps`` steps through ``api.train``,
+    by default and under ``torch.use_deterministic_algorithms`` (warn
+    only): whether the final checkpoints are bit-identical, which arrays
+    differ, and the steps' ``step_ms``.  Where the default runs differ, one
+    step run twice from one state names the first module output or
+    parameter gradient that differs (``first_divergence``).  Reports; fails
+    only on an error."""
+    import numpy as np
+    import torch
+    from levelgan_torch import api
+    from levelgan_torch.config import preset
+
+    cfg = preset("gumbel_64").override(**{
+        "train.steps": steps, "data.corpus_size": CORPUS_CUT,
+        "io.log_every": 1})
+    differs = {}
+    try:
+        for det in (False, True):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            arrays, step_ms = [], []
+            for run in (0, 1):
+                out = os.path.join(workdir, f"repro_{int(det)}_{run}")
+                res = api.train(cfg.override(**{"io.out_dir": out}),
+                                device=device, echo=False)
+                with np.load(os.path.join(res["checkpoint"],
+                                          "arrays.npz")) as z:
+                    arrays.append({k: z[k] for k in z.files})
+                with open(os.path.join(out, "metrics.jsonl")) as fh:
+                    step_ms += [json.loads(ln)["step_ms"]
+                                for ln in fh.read().splitlines()][1:]
+            diff = [k for k in arrays[0]
+                    if not np.array_equal(arrays[0][k], arrays[1][k])]
+            params = [k for k in arrays[0]
+                      if k.startswith(("generator/", "discriminator/"))]
+            differs[det] = diff
+            print(f"  use_deterministic_algorithms({det}): two {steps}-step "
+                  f"runs {'bit-identical' if not diff else 'differ'}: "
+                  f"{len(diff)} of {len(arrays[0])} arrays differ, "
+                  f"{sum(k in diff for k in params)} of {len(params)} "
+                  f"generator and critic parameters"
+                  + (f" (first: {diff[:4]})" if diff else "")
+                  + "; step_ms after the first step "
+                  + ", ".join(f"{v:.2f}" for v in step_ms))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if differs[False]:
+        print("  " + first_divergence(cfg, device))
+
+
+def first_divergence(cfg, device) -> str:
+    """One train step run twice from two states made from one seed, with
+    the same batch and randomness: the first module output or parameter
+    gradient, in the order they were computed, whose checksum differs."""
+    import torch
+    from levelgan_torch.api import sample_batch, step_generator
+    from levelgan_torch.train.state import create_state
+    from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+
+    m = cfg.model
+    corpus = torch.randint(0, m.n_tiles, (CORPUS_CUT, m.level_size,
+                                          m.level_size), dtype=torch.uint8,
+                           device=device,
+                           generator=torch.Generator(device).manual_seed(22))
+    step_fn = make_wgan_gp_step(cfg)
+    traces = []
+    for _ in range(2):
+        state = create_state(cfg, device, seed=21)
+        rec, handles = [], []
+
+        def note(name, t):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                t = t.detach().double()
+                rec.append((name, torch.stack([t.sum(), t.square().sum()])))
+
+        for prefix, model in (("G", state.generator), ("D", state.critic)):
+            for name, mod in model.named_modules():
+                if not list(mod.children()):
+                    handles.append(mod.register_forward_hook(
+                        lambda mod_, args, out, n=f"{prefix} {name or 'root'}":
+                        note(f"{n} output", out if isinstance(out, torch.Tensor)
+                             else out[0])))
+            for name, p in model.named_parameters():
+                handles.append(p.register_hook(
+                    lambda g, n=f"{prefix} {name}": note(f"{n} gradient", g)))
+        rng = step_generator(cfg, 0, device)
+        step_fn(state, sample_batch(corpus, cfg, rng), generator=rng)
+        torch.cuda.synchronize()
+        for h in handles:
+            h.remove()
+        traces.append(rec)
+    for i, ((n0, c0), (n1, c1)) in enumerate(zip(*traces)):
+        if n0 != n1:
+            return f"the two steps ran different ops at record {i}: {n0} / {n1}"
+        if not torch.equal(c0, c1):
+            return (f"first difference at record {i} of {len(traces[0])}: "
+                    f"{n0}")
+    return (f"one step twice from one seed: all {len(traces[0])} module "
+            "outputs and parameter gradients identical")
+
+
 def warm_steps(cfg, device):
     """The warm step time: a device-synchronised loop of the same step
     (create_state + make_wgan_gp_step, per-step batches and noise as
@@ -1131,11 +1367,8 @@ def profile_train(state, step_fn, corpus, cfg, steps=3):
               f"{want}: kernels of the autograd thread are missing, so "
               "device busy below is a lower bound")
     busy_ms = sum(dev_us(e) for e in rows) / 1e3 / steps
-    ours = ("upsample_block_fwd_kernel", "upsample_rows_fwd_kernel",
-            "k1_bwd_", "dx_gather_kernel", "norm_penalty_",
-            "critic_trunk_grad_kernel")
     ours_ms = sum(dev_us(e) for e in rows
-                  if any(o in e.key for o in ours)) / 1e3 / steps
+                  if any(o in e.key for o in OURS)) / 1e3 / steps
     print(f"  per step (profiled, {steps} steps): wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the port's kernels "
@@ -1168,7 +1401,7 @@ def kernels_line(records, counts, train_records, train_counts):
     meta = {
         "K1": ("upsample_block_fwd", "levelgan_torch/csrc/upsample_block.cu",
                "levelgan/kernels/upsample_block.py:304"),
-        "K1L": ("upsample_rows_fwd", "levelgan_torch/csrc/upsample_rows.cu",
+        "K1L": ("upsample_rows_stage", "levelgan_torch/csrc/upsample_rows.cu",
                 "levelgan/kernels/upsample_rows.py:253"),
         "K1 bwd": ("upsample_block_bwd",
                    "levelgan_torch/csrc/upsample_block.cu",
@@ -1235,7 +1468,7 @@ def kernels_line(records, counts, train_records, train_counts):
 
 
 PHASES = ("build", "parity", "export", "export_profile", "train_parity",
-          "train", "train_check", "train_profile")
+          "train", "train_check", "train_profile", "repro")
 
 
 def main(argv=()) -> int:
@@ -1294,6 +1527,10 @@ def main(argv=()) -> int:
         print("forward kernel parity and timing (gumbel_64 stages, B=1024, "
               "bf16):")
         records = kernel_parity(cfg, device)
+        for b, (_, _, names) in k1l_stage_timing(cfg, device).items():
+            if [n for n in names if "upsample_rows_stage_kernel" not in n]:
+                fail(f"the K1L stage at B={b} ran other device kernels than "
+                     f"its own: {names}")
     workdir = tempfile.mkdtemp(prefix="levelgan_torch_smoke_")
     try:
         if phase("export"):
@@ -1330,6 +1567,9 @@ def main(argv=()) -> int:
                       f"pallas_gp={c.model.pallas_gp}")
                 state, step_fn, corpus = warm_steps(c, device)
                 profile_train(state, step_fn, corpus, c)
+        if phase("repro"):
+            print("reproducibility: gumbel_64 trained twice from one seed")
+            reproducibility(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[{time.perf_counter() - t_start:7.1f} s] phases done")

@@ -8,7 +8,8 @@ the same generator then draws the step's noise (``draw_step_noise``), so a
 step's randomness depends on nothing but the seed and the step.  Metrics
 go to ``metrics.jsonl`` every ``io.log_every`` steps (with the window's
 tile-histogram ``kl`` against the corpus and ``step_ms``), checkpoints
-every ``io.ckpt_every`` steps and at the end.
+every ``io.ckpt_every`` steps and at the end, with the whole state (the
+optimizers in optax's layout), so that the JAX package can load them.
 
 The port runs eagerly on one device, so ``train.steps_per_dispatch`` (how
 many jitted steps the JAX package scans per dispatch) has no meaning here
@@ -16,7 +17,7 @@ and is ignored, as are ``io.compile_cache`` (XLA's cache) and
 ``data.feed`` (the corpus is always on the device).
 
 Not in this slice, each raising ``NotImplementedError`` rather than being
-skipped: ``io.resume`` (the full-state checkpoint), ``io.quality_every``
+skipped: ``io.resume`` (reading the state back), ``io.quality_every``
 and ``io.render_every`` (quality probes and PNG renders), ``io.profile``
 and ``io.tensorboard``, the BCE GAN and curriculum losses, conditional
 models and the track family.
@@ -44,8 +45,8 @@ _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 def _not_ported(cfg: Config) -> None:
     io, t, m = cfg.io, cfg.train, cfg.model
     later = [
-        (io.resume, "io.resume needs the full-state checkpoint (optimizer "
-                    "states and rng)"),
+        (io.resume, "io.resume needs the optimizer states read back from "
+                    "the full-state checkpoint"),
         (io.quality_every, "io.quality_every needs the solver and "
                            "lio/quality.py (curriculum and quality items)"),
         (io.render_every, "io.render_every (PNG renders during training) "
@@ -81,6 +82,14 @@ def sample_batch(corpus: torch.Tensor, cfg: Config,
     idx = torch.randint(0, corpus.shape[0], (t.n_critic, t.batch_size),
                         device=corpus.device, generator=generator)
     return corpus[idx]
+
+
+def save_state(ckpt_dir: str, state, cfg: Config, step: int,
+               keep: int) -> str:
+    """The full-state checkpoint of ``state`` at ``step``."""
+    return save_checkpoint(ckpt_dir, state.generator, cfg, step,
+                           critic=state.critic, g_ema=state.g_ema,
+                           opt_g=state.opt_g, opt_d=state.opt_d, keep=keep)
 
 
 def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
@@ -122,12 +131,8 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
                     step_ms=1e3 * (now - t_last) / (i + 1 - last_i))
                 t_last, last_i = now, i + 1
             if crossed(io.ckpt_every, i, i + 1) and i + 1 < steps:
-                save_checkpoint(ckpt_dir, state.generator, cfg, i + 1,
-                                critic=state.critic, g_ema=state.g_ema,
-                                keep=io.keep_ckpts)
+                save_state(ckpt_dir, state, cfg, i + 1, io.keep_ckpts)
     finally:
         logger.close()
-    final = save_checkpoint(ckpt_dir, state.generator, cfg, state.step,
-                            critic=state.critic, g_ema=state.g_ema,
-                            keep=io.keep_ckpts)
+    final = save_state(ckpt_dir, state, cfg, state.step, io.keep_ckpts)
     return {"checkpoint": final, "kl": kl, "metrics": last_metrics}

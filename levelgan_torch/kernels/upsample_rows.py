@@ -1,30 +1,36 @@
-"""K1L on Hopper: row-tiled ConvTranspose(4x4, s2) in folded layout, forward
-and backward.
+"""K1L on Hopper: the late upsample stage (ConvTranspose 4x4 / s2, GroupNorm,
+LeakyReLU) in one cluster kernel, and its backward.
 
 Replaces ``levelgan/kernels/upsample_rows.py:_conv_fwd`` and ``_conv_bwd``
 (their ``pl.pallas_call``s), reached there from ``upsample_block_rows_sm``
-through the ``jax.custom_vjp`` of ``_make_rows_op``.  CUDA source:
-``levelgan_torch/csrc/upsample_rows.cu``.
+through the ``jax.custom_vjp`` of ``_make_rows_op``, together with the XLA
+pass that follows ``_conv_fwd`` in ``_forward_rows`` (GroupNorm from the
+kernel's sums, affine, LeakyReLU, unfold).  CUDA source:
+``levelgan_torch/csrc/upsample_rows.cu`` (+ ``stage_common.cuh``).
 
-The stage runs in two passes, as in the JAX package:
-
-1. the kernel (``upsample_rows_fwd``): the transposed conv emitted as the
-   folded ``yf [B, H, W, 4Co]`` bf16 (channel block p = 2a + b holds output
-   parity (a, b)) plus per-(sample, channel) sums ``s1``/``s2`` [B, Co] f32
-   of the f32 conv output, accumulated with ``atomicAdd`` into zeroed
-   buffers (run-to-run order varies: f32-rounding differences only);
-2. ``finish``: GroupNorm from the sums, affine, LeakyReLU and the
-   depth-to-space ``unfold``, in plain PyTorch (the JAX package runs this
-   outside Pallas too; fusing it is later work).
-
-Design.  A block owns 128 / W input rows of one sample and 32 output
-channels for all four parities, so any stage width fits; the TPU kernel's
+Forward (``upsample_block_rows``, one launch of ``upsample_rows_stage``).
+A block owns 128 / W input rows of one sample and 32 output channels for
+all four parities, each warp a (parity, 64 rows, 32 channels) tile of
+``mma.sync`` accumulators with ``ldmatrix`` fragments; the TPU kernel's
 packed 9-shift weights (structured zeros that bought MXU lanes) are not
-carried over: each parity multiplies only its own 4 taps.  What bounds it
-at gumbel_64 up3 (B = 1024): 68.7 GFLOP against ~400 MB of x in and yf out
-is 171 FLOP/byte, under the card's 295, so the bytes bound it (0.12 ms);
-this first version (``mma.sync``, single-buffered staging) runs at about
-six times that.
+carried over: each parity multiplies only its own 4 taps.  The H / rt
+blocks of one (sample, channel block) form a thread-block cluster (8 at
+gumbel_64 up3): each publishes its partial channel sums, reduced in a fixed
+order, in shared memory; after a cluster barrier every block reads all
+ranks' partials through distributed shared memory in rank order, forms the
+GroupNorm mean and rstd from E[y^2] - E[y]^2 in f32 (as ``rows_stats``
+does), normalises the accumulators in registers and stores the unfolded
+bf16 tile once, 16 bytes a lane.  No atomics and no zeroed buffers: two
+calls give the same bits.  The clusters are persistent (as many as the
+card holds at once, ``stage_grid``), walk over samples, stage their taps
+once per call and prefetch the next sample's rows with ``cp.async`` under
+the current sample's epilogue.  ``stage_tile`` gives the cluster size and
+the ring depth; the weight is packed by chunks once per weight version
+(``packed``).  In training (``residuals=True``) the kernel also stores the
+folded pre-norm conv output ``yf`` [B, H, W, 4Co] bf16 and the
+per-(sample, channel) mean / rstd that the backward reads.  What bounds it
+at gumbel_64 up3 (B = 1024): 134 MB of x in and 268 MB of y out (0.120 ms
+at 3.35 TB/s) against 68.7 GFLOP (0.069 ms): the bytes.
 
 Backward (``UpsampleRowsFn``, the custom VJP of ``_make_rows_op``): the
 LeakyReLU + GroupNorm backward in plain PyTorch in folded layout, from the
@@ -37,8 +43,10 @@ packed weights and their structured zeros); then ``weight_grad_folded``
 with torch matmuls.  At gumbel_64 up3 (B = 64) dx is 4.29 GFLOP against
 16.8 MB of dyf in and 8.4 MB of dx out: the bytes bound it (~7.5 us).
 
-On a CPU tensor the wrappers run the plain versions (``conv_rows_plain``,
-``conv_rows_bwd_plain``); on a CUDA tensor they launch the kernel or raise.
+On a CPU tensor the wrappers run the plain versions
+(``upsample_block_rows_plain``: ``conv_rows_plain``, ``rows_stats``,
+``normalize``; ``conv_rows_bwd_plain``); on a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -48,16 +56,23 @@ import ctypes
 import torch
 
 from levelgan_torch.kernels import build
-from levelgan_torch.kernels.upsample_block import (KCB, NB_DX, dx_fits,
-                                                   dx_tile, pack_taps,
+from levelgan_torch.kernels.upsample_block import (KCB, NB_DX, ROW_BYTES,
+                                                   SMEM_MAX, dx_fits, dx_tile,
+                                                   pack_taps_chunks,
                                                    pack_taps_dx, packed)
 from levelgan_torch.ops.blocks import (conv_transpose_2x,
                                        conv_transpose_2x_input_grad,
                                        leaky_relu, up)
 
-KC = 64               # input channels per smem chunk (csrc: lgt::KC)
-NC = 32               # output channels per block
+KC = 32               # input channels per staged chunk (csrc: lgt::KC32)
+NC = 32               # output channels per block (csrc: lgt::NB32)
 MROWS = 128           # positions per parity per block (rows x W)
+MAX_CLUSTER = 8       # blocks of a cluster, at most (the portable size)
+MAX_STAGES = 3        # input chunks in flight, at most
+TAP_ROWS = 16 * NC    # staged rows of one chunk of taps (csrc: TAP_ROWS)
+YS_BYTES = 4 * MROWS * NC * 2     # a block's bf16 output tile (csrc)
+SUMS_BYTES = (8 * 2 + 4 + 2) * NC * 4   # the sums of a block (csrc: TAIL)
+EPS = 1e-5
 SHIFTS = tuple((u, v) for u in (0, 1, 2) for v in (0, 1, 2))
 
 launches = 0          # forward kernel launches since the last reset
@@ -98,51 +113,91 @@ def conv_rows_bwd_plain(dyf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _lib():
     lib = build.load("upsample_rows")
-    fn = lib.upsample_rows_fwd
+    fn = lib.upsample_rows_stage
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [ptr] * 8 + [i32] * 8 + [f32] * 2 + [ptr]
+        fn.restype = i32
+        occ = lib.upsample_rows_stage_max_clusters
+        occ.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = i32
+        smem = lib.upsample_rows_stage_smem
+        smem.argtypes = [i32] * 3
+        smem.restype = ctypes.c_size_t
         bwd = lib.upsample_rows_bwd
-        bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        bwd.restype = ctypes.c_int
+        bwd.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+        bwd.restype = i32
     return lib
 
 
-def upsample_rows_fwd(x: torch.Tensor, w: torch.Tensor):
-    """x [B, H, W, Ci] -> (yf [B, H, W, 4Co], s1 [B, Co], s2 [B, Co])."""
-    if x.device.type == "cpu":
-        return conv_rows_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"K1L runs on CUDA tensors, got {x.device}")
-    b, h, ww, ci = x.shape
-    co = w.shape[-1]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("K1L takes a contiguous bf16 x")
-    if tuple(w.shape) != (4, 4, ci, co) or w.dtype != torch.float32 \
-            or w.device != x.device:
-        raise ValueError(f"K1L weight must be f32 (4, 4, {ci}, {co}) on "
-                         f"{x.device}, got {tuple(w.shape)} {w.dtype}")
-    if (ci % KC or co % NC or ww < 16 or MROWS % ww
-            or h % (MROWS // ww)):
+def stage_smem(w: int, ci: int, stages: int) -> int:
+    """Dynamic shared memory of one stage block (csrc:
+    ``upsample_rows_stage_smem``): the 16 taps x 32 channels x Ci, staged
+    once; ``stages`` haloed chunks of the block's input rows; the bf16
+    output tile; the sums."""
+    rt = MROWS // w
+    return (ci // KC * TAP_ROWS * ROW_BYTES
+            + stages * (rt + 2) * (w + 2) * ROW_BYTES + YS_BYTES + SUMS_BYTES)
+
+
+def stage_tile(h: int, w: int, ci: int, co: int,
+               group_size: int) -> tuple[int, int]:
+    """(cluster size, ring depth) of the stage kernel at an input shape.
+
+    A block takes rt = 128 / W rows of a sample, so a cluster has H / rt
+    blocks, at most 8 (the portable cluster size).  The ring holds up to
+    one sample's chunks plus one, at most 3, as far as shared memory
+    allows beside the resident taps."""
+    gs = _group_shape(co, group_size)[1]
+    rt = MROWS // w if w and MROWS % w == 0 else 0
+    if (w < 16 or not rt or h % rt or h // rt > MAX_CLUSTER or ci % KC
+            or co % NC or NC % gs):
         raise ValueError(
-            f"K1L shape rule violated: ci={ci} (multiple of {KC}), co={co} "
-            f"(multiple of {NC}), W={ww} (divides {MROWS}, >= 16), H={h} "
-            f"(multiple of {MROWS} / W)")
-    wt = pack_taps(w)
-    yf = torch.empty((b, h, ww, 4 * co), dtype=torch.bfloat16,
-                     device=x.device)
-    s1 = torch.zeros((b, co), dtype=torch.float32, device=x.device)
-    s2 = torch.zeros((b, co), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib().upsample_rows_fwd(
-            build.ptr(x), build.ptr(wt), build.ptr(yf), build.ptr(s1),
-            build.ptr(s2), b, h, ww, ci, co, build.stream_ptr(x.device))
-    build.check(err, "upsample_rows_fwd")
-    global launches
-    launches += 1
-    return yf, s1, s2
+            f"K1L shape rule violated: W={w} (divides {MROWS}, >= 16), H={h} "
+            f"(a multiple of 128 / W = {rt or '-'}, at most {MAX_CLUSTER} "
+            f"times it: one cluster of H / rt blocks per sample), ci={ci} "
+            f"(multiple of {KC}), co={co} (multiple of {NC}), group size "
+            f"{gs} (divides {NC})")
+    for stages in range(min(MAX_STAGES, ci // KC + 1), 1, -1):
+        if stage_smem(w, ci, stages) <= SMEM_MAX:
+            return h // rt, stages
+    raise ValueError(f"K1L at W={w}, ci={ci} needs {stage_smem(w, ci, 2)} "
+                     f"bytes of shared memory (at most {SMEM_MAX}): the taps "
+                     "of all input channels stay resident")
+
+
+def stage_grid(b: int, co: int, max_clusters: int) -> int:
+    """Clusters of the persistent grid: as many as the card holds at once
+    (``max_clusters``), a multiple of the Co / 32 channel blocks (a cluster
+    keeps one channel block's taps), and no more than the samples."""
+    ncb = co // NC
+    per = max_clusters // ncb
+    if per < 1:
+        raise ValueError(f"K1L: the card holds {max_clusters} clusters at "
+                         f"once, fewer than the {ncb} channel blocks")
+    return ncb * min(b, per)
+
+
+_occupancy: dict = {}
+
+
+def max_clusters(device, csize: int, w: int, ci: int, stages: int) -> int:
+    """How many stage clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per shape."""
+    key = (device, csize, w, ci, stages)
+    if key not in _occupancy:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _lib().upsample_rows_stage_max_clusters(
+                csize, w, ci, stages, ctypes.byref(out))
+        build.check(err, "upsample_rows_stage_max_clusters")
+        if out.value < 1:
+            raise RuntimeError(
+                f"K1L: no cluster of {csize} blocks with "
+                f"{stage_smem(w, ci, stages)} bytes of shared memory each "
+                "fits the card")
+        _occupancy[key] = out.value
+    return _occupancy[key]
 
 
 def upsample_rows_bwd(dyf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -209,22 +264,70 @@ def normalize(yf: torch.Tensor, mu: torch.Tensor, rstd: torch.Tensor,
     return unfold(leaky_relu(yn, slope).to(yf.dtype)).contiguous()
 
 
-def finish(yf: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
-           gamma: torch.Tensor, beta: torch.Tensor, *, slope: float = 0.2,
-           group_size: int = 16, eps: float = 1e-5) -> torch.Tensor:
-    """Pass 2 from the kernel's sums: GroupNorm, affine, LeakyReLU, unfold."""
-    b, h, w, _ = yf.shape
-    mu, rstd = rows_stats(s1, s2, 4 * h * w, group_size=group_size, eps=eps)
-    return normalize(yf, mu, rstd, gamma, beta, slope=slope)
+def upsample_block_rows_plain(x, w, gamma, beta, *, slope: float = 0.2,
+                              group_size: int = 16,
+                              residuals: bool = False):
+    """The stage in plain PyTorch: the conv (``conv_rows_plain``), the
+    GroupNorm statistics from its sums (``rows_stats``), then
+    ``normalize``; with ``residuals`` also (yf, mu, rstd)."""
+    yf, s1, s2 = conv_rows_plain(x, w)
+    mu, rstd = rows_stats(s1, s2, 4 * yf.shape[1] * yf.shape[2],
+                          group_size=group_size, eps=EPS)
+    y = normalize(yf, mu, rstd, gamma, beta, slope=slope)
+    return (y, yf, mu, rstd) if residuals else y
 
 
 def upsample_block_rows(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, *, slope: float = 0.2,
-                        group_size: int = 16) -> torch.Tensor:
-    """The whole K1L stage: x [B, H, W, Ci] -> y [B, 2H, 2W, Co]."""
-    yf, s1, s2 = upsample_rows_fwd(x, w)
-    return finish(yf, s1, s2, gamma, beta, slope=slope,
-                  group_size=group_size)
+                        group_size: int = 16, residuals: bool = False):
+    """The whole K1L stage: x [B, H, W, Ci] -> y [B, 2H, 2W, Co] in x's
+    dtype (bf16 on the card).
+
+    ``w`` HWIO [4, 4, Ci, Co] f32, ``gamma``/``beta`` [Co] f32.  With
+    ``residuals`` returns ``(y, yf, mu, rstd)``: the folded pre-norm conv
+    output [B, H, W, 4Co] in x's dtype and the per-(sample, channel)
+    GroupNorm mean and rstd [B, Co] f32 that ``gn_act_bwd_folded`` reads.
+    """
+    if x.device.type == "cpu":
+        return upsample_block_rows_plain(x, w, gamma, beta, slope=slope,
+                                         group_size=group_size,
+                                         residuals=residuals)
+    if x.device.type != "cuda":
+        raise ValueError(f"K1L runs on CUDA tensors, got {x.device}")
+    b, h, ww, ci = x.shape
+    co = w.shape[-1]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("K1L takes a contiguous bf16 x")
+    for name, t, shape in (("w", w, (4, 4, ci, co)), ("gamma", gamma, (co,)),
+                           ("beta", beta, (co,))):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(f"K1L {name} must be f32 {shape} on {x.device}")
+    csize, stages = stage_tile(h, ww, ci, co, group_size)
+    ncl = stage_grid(b, co, max_clusters(x.device, csize, ww, ci, stages))
+    gs = _group_shape(co, group_size)[1]
+    wpk = packed(w, pack_taps_chunks)
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    y = torch.empty((b, 2 * h, 2 * ww, co), dtype=torch.bfloat16,
+                    device=x.device)
+    none = ctypes.c_void_p(None)
+    yf = mu = rstd = None
+    if residuals:
+        yf = torch.empty((b, h, ww, 4 * co), dtype=torch.bfloat16,
+                         device=x.device)
+        mu = torch.empty((b, co), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mu)
+    with torch.cuda.device(x.device):
+        err = _lib().upsample_rows_stage(
+            build.ptr(x), build.ptr(wpk), build.ptr(gamma), build.ptr(beta),
+            build.ptr(y), build.ptr(yf) if residuals else none,
+            build.ptr(mu) if residuals else none,
+            build.ptr(rstd) if residuals else none, b, h, ww, ci, co, gs,
+            stages, ncl, float(slope), EPS, build.stream_ptr(x.device))
+    build.check(err, "upsample_rows_stage")
+    global launches
+    launches += 1
+    return (y, yf, mu, rstd) if residuals else y
 
 
 def weight_grad_folded(x: torch.Tensor, dyf: torch.Tensor) -> torch.Tensor:
@@ -275,17 +378,18 @@ def gn_act_bwd_folded(g, yf, mu, rstd, gamma, beta, *, slope: float = 0.2,
 
 class UpsampleRowsFn(torch.autograd.Function):
     """The whole K1L stage as one differentiable op (``_make_rows_op``'s
-    custom VJP): kernel + finish forward; folded GN/act backward, the K1L
-    bwd kernel for dx and ``weight_grad_folded`` for dw."""
+    custom VJP): the stage kernel with residuals forward; folded GN/act
+    backward, the K1L bwd kernel for dx and ``weight_grad_folded`` for
+    dw."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, slope, group_size):
-        yf, s1, s2 = upsample_rows_fwd(x, w)
-        mu, rstd = rows_stats(s1, s2, 4 * yf.shape[1] * yf.shape[2],
-                              group_size=group_size)
+        y, yf, mu, rstd = upsample_block_rows(
+            x, w, gamma, beta, slope=slope, group_size=group_size,
+            residuals=True)
         ctx.save_for_backward(x, w, gamma, beta, yf, mu, rstd)
         ctx.slope, ctx.group_size = slope, group_size
-        return normalize(yf, mu, rstd, gamma, beta, slope=slope)
+        return y
 
     @staticmethod
     def backward(ctx, g):

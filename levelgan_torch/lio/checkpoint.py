@@ -3,11 +3,22 @@
 One directory per checkpoint, ``step_XXXXXXXX/`` with ``arrays.npz`` (flat
 keys) and ``manifest.json`` (format version, step, sorted key list, the
 full config), written atomically: a ``.tmp_*`` sibling is written and
-fsynced, then renamed into place.  The port writes the fields it has so
-far — the generator, and when given the critic (``discriminator/...``) and
-the G EMA (``g_ema/...``), and the step — and reads the generator (EMA
-first) from checkpoints that either package wrote.  The optimizer states
-and the rng key wait for the full-state checkpoint (resume).
+fsynced, then renamed into place.  The port writes the generator and the
+step, and when given them the critic (``discriminator/...``), the G EMA
+(``g_ema/...``) and the two optimizers: then the whole state that the JAX
+package's ``flat_to_state`` reads, so that ``levelgan.lio.checkpoint.
+load_checkpoint`` restores a port training checkpoint.  It reads the
+generator (EMA first) from checkpoints that either package wrote.
+
+The optimizers go in optax's ``adam`` layout: ``opt_g/0/{count,mu,nu}``
+(``scale_by_adam``; torch's ``exp_avg`` / ``exp_avg_sq`` follow the same
+recurrences as optax's ``mu`` / ``nu``), then, under a learning-rate
+schedule, ``opt_g/1/count`` (``scale_by_schedule``); both counts are
+``ScheduledAdam.count``.  ``rng`` is uint32 key data of the shape
+``train.prng_impl`` implies (threefry2x32: 2 words, rbg: 4), drawn from the
+run's seed and step: the JAX key stream cannot be reproduced in torch
+anyway.  ``g_baseline`` (the curriculum's REINFORCE baseline) is 0.
+Reading the optimizers back into the port (resume) is later work.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from levelgan_torch.config import Config
 
 FORMAT_VERSION = 1
 _STEP_DIR = re.compile(r"^step_(\d{8})$")
+_KEY_WORDS = {"threefry2x32": 2, "rbg": 4}   # uint32 words of a key
+_RNG_TAG = 0x5EED                            # separates the key's stream
 
 
 def _fsync_file(path: str) -> None:
@@ -37,14 +50,48 @@ def _fsync_file(path: str) -> None:
         os.close(fd)
 
 
+def _adam_to_flat(opt: torch.optim.Optimizer, model: torch.nn.Module,
+                 prefix: str, scheduled: bool) -> dict[str, np.ndarray]:
+    """``opt``'s state over ``model``'s parameters in optax's ``adam``
+    layout under ``prefix`` (see the module note); parameters without a
+    step yet have zero moments."""
+    count = np.asarray(opt.count, np.int32)
+    flat = {f"{prefix}/0/count": count}
+    for slot, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        moments = {}
+        for key, p in model.named_parameters():
+            m = opt.state.get(p, {}).get(name)
+            moments[key] = torch.zeros_like(p) if m is None else m
+        flat.update(generator_params_to_flat(moments, f"{prefix}/0/{slot}"))
+    if scheduled:
+        flat[f"{prefix}/1/count"] = count
+    return flat
+
+
+def _rng_key_data(cfg: Config, step: int) -> np.ndarray:
+    """uint32 key data of the shape ``train.prng_impl`` implies, from the
+    run's seed and step."""
+    seed = np.random.SeedSequence([cfg.train.seed, _RNG_TAG, step])
+    return seed.generate_state(_KEY_WORDS[cfg.train.prng_impl], np.uint32)
+
+
 def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
                     step: int = 0, *, critic: torch.nn.Module | None = None,
                     g_ema: torch.nn.Module | None = None,
+                    opt_g: torch.optim.Optimizer | None = None,
+                    opt_d: torch.optim.Optimizer | None = None,
                     keep: int = 0) -> str:
     """Atomically write ``ckpt_dir/step_XXXXXXXX``; returns the path.
 
-    ``keep > 0`` deletes all but the newest ``keep`` step directories.
+    With ``critic``, ``opt_g`` and ``opt_d`` (``ScheduledAdam``s over the
+    generator's and the critic's parameters) the checkpoint holds the full
+    state.  ``keep > 0`` deletes all but the newest ``keep`` step
+    directories.
     """
+    if (opt_g is None) != (opt_d is None) or (opt_g is not None
+                                              and critic is None):
+        raise ValueError("a full-state checkpoint takes the critic and both "
+                         "optimizers")
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
     final = os.path.join(ckpt_dir, name)
@@ -58,6 +105,12 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
         flat.update(critic_params_to_flat(critic.state_dict()))
     if g_ema is not None:
         flat.update(generator_params_to_flat(g_ema.state_dict(), "g_ema"))
+    if opt_g is not None:
+        scheduled = cfg.train.lr_schedule != "none"
+        flat.update(_adam_to_flat(opt_g, generator, "opt_g", scheduled))
+        flat.update(_adam_to_flat(opt_d, critic, "opt_d", scheduled))
+        flat["rng"] = _rng_key_data(cfg, step)
+        flat["g_baseline"] = np.zeros((), np.float32)
     flat["step"] = np.asarray(step, np.int32)
     arrays_path = os.path.join(tmp, "arrays.npz")
     np.savez(arrays_path, **flat)

@@ -66,19 +66,32 @@ def test_k1l_stage_matches_jax_rows():
 
 
 def test_k1l_pass1_folded_output_and_sums():
-    """yf is the folded conv and s1/s2 its per-channel sums (JAX layout)."""
-    x, w, _, _ = _io(2, 8, 16, 8, seed=3)
+    """The conv's folded output and its per-channel sums (JAX layout), and
+    the stage's residuals made from them: yf and the GroupNorm mean / rstd
+    of the sums over all positions and parities."""
+    x, w, gamma, beta = _io(2, 8, 16, 8, seed=3)
     y_j = np.asarray(jblocks.conv_transpose_2x(
         jnp.asarray(x), jnp.asarray(w), compute_dtype=jnp.float32))
     yf_j = np.asarray(jnp.transpose(
         jfold(jnp.transpose(jnp.asarray(y_j), (1, 2, 0, 3))), (2, 0, 1, 3)))
-    yf, s1, s2 = k1l.upsample_rows_fwd(*_t(x, w))
+    yf, s1, s2 = k1l.conv_rows_plain(*_t(x, w))
     assert yf.shape == (2, 8, 8, 32)
     np.testing.assert_allclose(yf.numpy(), yf_j, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(s1.numpy(), y_j.sum(axis=(1, 2)),
                                atol=1e-3, rtol=RTOL)
     np.testing.assert_allclose(s2.numpy(), (y_j ** 2).sum(axis=(1, 2)),
                                atol=1e-3, rtol=RTOL)
+    _, yf_s, mu, rstd = k1l.upsample_block_rows(*_t(x, w, gamma, beta),
+                                                group_size=4, residuals=True)
+    np.testing.assert_allclose(yf_s.numpy(), yf_j, atol=ATOL, rtol=RTOL)
+    yg = y_j.reshape(2, -1, 2, 4)                # groups of 4 channels
+    mean = yg.mean(axis=(1, 3))
+    var = (yg ** 2).mean(axis=(1, 3)) - mean ** 2
+    np.testing.assert_allclose(mu.numpy(), np.repeat(mean, 4, 1),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(rstd.numpy(),
+                               np.repeat(1 / np.sqrt(var + 1e-5), 4, 1),
+                               atol=ATOL, rtol=RTOL)
 
 
 def test_fold_unfold_roundtrip_and_jax_layout():

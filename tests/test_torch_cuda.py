@@ -53,15 +53,20 @@ def test_k1_matches_plain(cuda, b, h, ci, co, gs):
     _assert_close(y, upsample_block(x, w, gamma, beta, group_size=gs))
 
 
-@pytest.mark.parametrize("b,h,ci,co", [(2, 16, 128, 64), (2, 32, 64, 32)])
+# K1L stage shapes (H, Ci, Co): gumbel_64 up3 and up2 as a second shape
+K1L_SHAPES = [(32, 64, 32), (16, 128, 64)]
+
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
+@pytest.mark.parametrize("b", [2, 5])
 def test_k1l_matches_plain(cuda, b, h, ci, co):
     from levelgan_torch.kernels import upsample_rows as k1l
-    x, w, _, _ = _inputs(b, h, ci, co, cuda, seed=1)
-    yf, s1, s2 = k1l.upsample_rows_fwd(x, w)
-    yf_p, s1_p, s2_p = k1l.conv_rows_plain(x, w)
-    _assert_close(yf, yf_p)
-    torch.testing.assert_close(s1, s1_p, atol=1e-3, rtol=1e-4)
-    torch.testing.assert_close(s2, s2_p, atol=1e-3, rtol=1e-4)
+    x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=1)
+    n = k1l.launches
+    y = k1l.upsample_block_rows(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    assert k1l.launches == n + 1
+    _assert_close(y, k1l.upsample_block_rows_plain(x, w, gamma, beta))
 
 
 def test_kernel_wrappers_raise_on_bad_shapes(cuda):
@@ -511,3 +516,123 @@ def test_k1_packing_tells_a_transposed_weight_from_the_weight(cuda):
     assert not torch.equal(got, first)
     _assert_close(got, k1.upsample_block_fwd_plain(
         x, wt.contiguous(), gamma, beta)[0])
+
+
+# ---- K1L's stage kernel: clusters, persistent grid, residuals -------------
+
+def _k1l_grid(k1l, device, h, ci, co):
+    """(clusters the card holds, samples per wave) at a K1L shape."""
+    csize, stages = k1l.stage_tile(h, h, ci, co, 16)
+    maxc = k1l.max_clusters(device, csize, h, ci, stages)
+    return maxc, maxc // (co // k1l.NC)
+
+
+def _assert_k1l_residuals_match_plain(k1l, x, w, gamma, beta):
+    y, yf, mu, rstd = k1l.upsample_block_rows(x, w, gamma, beta,
+                                              residuals=True)
+    torch.cuda.synchronize()
+    yf_p, s1, s2 = k1l.conv_rows_plain(x, w)
+    mu_p, rstd_p = k1l.rows_stats(s1, s2, 4 * x.shape[1] * x.shape[2])
+    _assert_close(yf, yf_p)
+    assert _rel_err(mu, mu_p) <= 1e-4 and _rel_err(rstd, rstd_p) <= 1e-4
+    _assert_close(y, k1l.normalize(yf_p, mu_p, rstd_p, gamma, beta))
+    assert torch.equal(y, k1l.upsample_block_rows(x, w, gamma, beta))
+
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
+def test_k1l_ragged_batches_across_the_persistent_grid(cuda, h, ci, co):
+    """B = 1, 3, one more than a wave of clusters and two waves and three:
+    the clusters of the last wave that have no sample store nothing."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    maxc, per = _k1l_grid(k1l, cuda, h, ci, co)
+    assert maxc >= 1 and per >= 1
+    for b in (1, 3, per + 1, 2 * per + 3):
+        x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=100 + b)
+        _assert_k1l_residuals_match_plain(k1l, x, w, gamma, beta)
+
+
+@pytest.mark.parametrize("gs", [8, 32])
+def test_k1l_residuals_match_plain_at_other_group_sizes(cuda, gs):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    x, w, gamma, beta = _inputs(3, 32, 64, 32, cuda, seed=110)
+    y, yf, mu, rstd = k1l.upsample_block_rows(x, w, gamma, beta,
+                                              group_size=gs, residuals=True)
+    want = k1l.upsample_block_rows_plain(x, w, gamma, beta, group_size=gs,
+                                         residuals=True)
+    _assert_close(y, want[0])
+    _assert_close(yf, want[1])
+    assert _rel_err(mu, want[2]) <= 1e-4 and _rel_err(rstd, want[3]) <= 1e-4
+
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
+def test_k1l_is_bit_reproducible(cuda, h, ci, co):
+    """No atomics: two calls give the same y, yf, mu and rstd bits."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    x, w, gamma, beta = _inputs(37, h, ci, co, cuda, seed=120)
+    one = k1l.upsample_block_rows(x, w, gamma, beta, residuals=True)
+    two = k1l.upsample_block_rows(x, w, gamma, beta, residuals=True)
+    for name, a, c in zip(("y", "yf", "mu", "rstd"), one, two):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
+def test_k1l_samples_are_independent(cuda, h, ci, co):
+    """Changing sample j leaves every other sample's outputs bit-identical:
+    no cluster reads another sample's partials or rows."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    b, j = 9, 4
+    x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=130)
+    x2 = x.clone()
+    x2[j] = torch.randn(x[j].shape, device=cuda).to(torch.bfloat16)
+    keep = [i for i in range(b) if i != j]
+    one = k1l.upsample_block_rows(x, w, gamma, beta, residuals=True)
+    two = k1l.upsample_block_rows(x2, w, gamma, beta, residuals=True)
+    for name, a, c in zip(("y", "yf", "mu", "rstd"), one, two):
+        assert torch.equal(a[keep], c[keep]), name
+        assert not torch.equal(a[j], c[j]), name
+
+
+def test_k1l_packed_weights_follow_in_place_updates(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    x, w, gamma, beta = _inputs(4, 32, 64, 32, cuda, seed=140)
+    w = torch.nn.Parameter(w)
+    opt = torch.optim.SGD([w], lr=0.5)
+    before = k1l.upsample_block_rows(x, w, gamma, beta)
+    w.grad = torch.randn_like(w)
+    opt.step()                                   # in place, as in training
+    after = k1l.upsample_block_rows(x, w, gamma, beta)
+    assert not torch.equal(after, before)
+    _assert_close(after, k1l.upsample_block_rows_plain(x, w.detach(), gamma,
+                                                       beta))
+
+
+def test_k1l_shared_memory_formula_matches_the_source(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    lib = k1l._lib()
+    for w, ci, stages in [(32, 64, 3), (32, 64, 2), (16, 128, 2)]:
+        assert lib.upsample_rows_stage_smem(w, ci, stages) == k1l.stage_smem(
+            w, ci, stages)
+
+
+def test_k1l_refused_cluster_launch_raises(cuda, monkeypatch):
+    """A ring too deep for the shared memory: the occupancy query and the
+    launch both fail, the wrapper raises, and the next call runs."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    x, w, gamma, beta = _inputs(2, 32, 64, 32, cuda, seed=150)
+    assert k1l.stage_smem(32, 64, 8) > 232448
+    monkeypatch.setattr(k1l, "stage_tile", lambda *a: (8, 8))
+    with pytest.raises(RuntimeError):
+        k1l.upsample_block_rows(x, w, gamma, beta)
+    monkeypatch.setattr(k1l, "max_clusters", lambda *a: 16)
+    with pytest.raises(RuntimeError, match="upsample_rows_stage"):
+        k1l.upsample_block_rows(x, w, gamma, beta)
+    monkeypatch.undo()
+    _assert_close(k1l.upsample_block_rows(x, w, gamma, beta),
+                  k1l.upsample_block_rows_plain(x, w, gamma, beta))
+
+
+def test_k1l_refuses_shapes_outside_the_cluster_rule(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    x, w, gamma, beta = _inputs(2, 64, 32, 32, cuda, seed=160)
+    with pytest.raises(ValueError, match="cluster"):
+        k1l.upsample_block_rows(x, w, gamma, beta)

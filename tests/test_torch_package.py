@@ -113,4 +113,4 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         k1.upsample_block_fwd(x, w, g, g)
     with pytest.raises(ValueError):
-        k1l.upsample_rows_fwd(x, w)
+        k1l.upsample_block_rows(x, w, g, g)
