@@ -30,7 +30,10 @@ Needs one CUDA card (exits non-zero without one, and without the
    on residuals from K1 forward) at every stage they serve, K1L bwd at
    gumbel_64 up3 and up2, K2 core fwd / bwd on [64, 32768] and [64, 8192]
    f32, and K2 fused (the critic trunk's forward and input gradient) at
-   the 32x32 and 16x16 critics, with GroupNorm off and with group size 8;
+   the 32x32 and 16x16 critics, with GroupNorm off and with group size 8
+   (timed with its weight pack, as training calls it; the pack alone, its
+   bits against ``pack_weights_plain``, the cluster, grid and ring, one
+   sample alone, the L2 weight stream and the first block's phases);
    each against its plain version, with kernel / plain / library device
    times (CUDA events around calls queued behind a spin kernel,
    ``queued_ms``) and bounds; and the gradient-penalty implementations
@@ -965,23 +968,51 @@ def fused_kernel_parity(device, rows):
         record(rows, name, "K2 fused", "gp", [b, m0, m0, *chans], errs, run,
                plain, library, flops, nbytes)
 
-        # where the kernel's time goes: the wrapper's weight packing, one
-        # sample alone on the card, and the first block's phases
+        # where the kernel's time goes: the weight pack (one launch, timed
+        # with the kernel above as training calls it), one sample alone on
+        # the card, and the first block's phases
+        ws = [w for w, *_ in layers]
+        packed = k2f.pack_weights(ws)
+        if not torch.equal(packed.cpu(), k2f.pack_weights_plain(
+                [w.cpu() for w in ws])):
+            fail(f"K2 fused at {name}: the pack kernel disagrees with "
+                 "pack_weights_plain")
+        depth = k2f.ring_depth(m0, chans)
+        print(f"    clusters of {k2f.CS} blocks (one per sample, split by "
+              f"output channels), grid {b * k2f.CS} blocks of "
+              f"{(k2f.NCW + 1) * 32} threads, "
+              f"{k2f.smem_layout(m0, chans, depth)['total']} bytes of shared "
+              f"memory a block, a ring of {depth} chunks of "
+              f"{k2f.CHUNK_BYTES} bytes; the pack kernel matches "
+              "pack_weights_plain bit for bit")
+
         def packing():
-            return [(k2f.pack_taps(w), k2f.pack_taps_bwd(w))
-                    for w, *_ in layers]
+            return k2f.pack_weights(ws)
 
         def one_sample():
             return k2f.critic_trunk_grad(a0[:1], layers, head_w, slope=slope,
                                          group_size=gs)
 
+        # how fast the card's L2 streams the bf16 weights of both directions
+        # to every sample: one torch.sum over them broadcast (stride 0) to
+        # the batch, so each row re-reads the same 2 x the weight bytes
+        wflat = torch.cat([w.to(bf16).reshape(-1) for w in ws] * 2)
+        wide = wflat.expand(b, -1)
+
+        def l2_stream():
+            return wide.sum(dim=1, dtype=torch.float32)
+
+        l2_ms = queued_ms(l2_stream)
+        print(f"    L2 weight stream: {b} x {wflat.numel() * 2 / 2**20:.3f} "
+              f"MiB read by torch.sum in {l2_ms:.5f} ms = "
+              f"{b * wflat.numel() * 2 / l2_ms / 1e9:.3f} TB/s")
         probe = torch.zeros(2 + 4 * len(layers), dtype=torch.int64,
                             device=device)
         k2f.critic_trunk_grad(a0, layers, head_w, slope=slope, group_size=gs,
                               probe=probe)
         torch.cuda.synchronize()
         stamps = probe.tolist()
-        print(f"    of that, packing the weights (PyTorch ops in the wrapper) "
+        print(f"    of that, the weight pack kernel "
               f"{queued_ms(packing):.5f} ms; the whole call at B = 1 "
               f"{queued_ms(one_sample):.5f} ms; first block by phase (us): "
               + ", ".join(f"{ph} {(t1 - t0) / 1e3:.2f}" for ph, t0, t1 in zip(

@@ -33,21 +33,23 @@ Hessian is symmetric, so the two are one function).
 then the K2 core (``NormPenalty``).
 
 Design.  The TPU kernel tiles the batch and works spatial-major; on the card
-one block owns one sample, since the GroupNorm statistics and the whole
-chain are per sample: every reduction is local to the block and runs in a
-fixed order (no atomics).  The sample's activations, normalised values and
-cotangents stay in shared memory (about 220 KB of dynamic shared memory at
-the 32x32 critic, 64 -> 128 -> 256 channels); the bf16 weights (1.25 MiB
-there) stay in device memory, L2 serves them, and each 64-column chunk of a
-tap is staged with ``cp.async`` into a ring of 2 to 4 buffers while the
-tensor cores (``mma.sync``) work on the chunks before.  The layout is the
-port's batch-major NHWC, so no transposes surround the kernel.  What bounds
-it on an H100 at that shape, B = 64: 4.29 GFLOP (about 4.3 us on the tensor
-cores) against about 5.5 MB (1.6 us), so the operations.  This version is far
-from that bound: a block alone on the card takes as long as 64 of them, so
-what it waits for is inside its SM (the fragment loads from shared memory,
-the queueing of the copies and the per-chunk barriers; the .cu's header and
-PERF.md say more).  ``probe`` returns the kernel's time by phase.
+a cluster of two blocks owns one sample, split by output channels (CS), since
+the GroupNorm statistics and the whole chain are per sample and a group
+never straddles the halves: every reduction is local to a block and runs in
+a fixed order (no atomics), and each layer's new grid is exchanged through
+distributed shared memory.  The sample's activations, y and cotangents stay
+in shared memory; the weights come through ``pack_weights`` (one launch per
+call: the critic's weights change after every training step, so nothing is
+cached) as one bf16 stream per block, copied in 32 KB chunks by
+``cp.async.bulk`` into an mbarrier ring while the tensor cores
+(``mma.sync``, ``ldmatrix`` fragments) work on the chunks before.  The
+layout is the port's batch-major NHWC, so no transposes surround the kernel.
+What bounds it on an H100 at that shape, B = 64: 4.29 GFLOP (about 4.3 us on
+the tensor cores) against about 5.5 MB (1.6 us), so the operations; the
+kernel is far from that because a cluster alone takes as long as 64 of them
+(its chain of dependent passes; the .cu's header and PERF.md say more).
+``probe`` returns the kernel's time by phase; ``passes``, ``smem_layout`` and
+``pack_weights_plain`` mirror the kernel's plan for the CPU tests.
 
 ``fused_supported`` keeps the JAX package's reject rules, its VMEM footprint
 rule included (integer arithmetic, copied here), so that one manifest routes
@@ -68,15 +70,23 @@ from torch.autograd.function import once_differentiable
 from levelgan_torch.device import torch_dtype
 from levelgan_torch.kernels import build
 from levelgan_torch.kernels.gp_penalty import NormPenalty
-from levelgan_torch.kernels.upsample_block import pack_taps, pack_taps_bwd
 from levelgan_torch.models.critic import Critic, critic_channels
 from levelgan_torch.ops.blocks import leaky_relu, up
 from levelgan_torch.ops.grad_penalty import interpolate
 
 EPS = 1e-5
-KC = 64               # channels per staged weight chunk (csrc: KC)
-MAX_TASKS = 32        # (16-row, 16-column) tiles per GEMM pass (csrc)
+KC = 64               # K values of a weight row in a sub-unit (csrc: KC)
+MAX_TASKS = 32        # (16-row, 16-column) tiles per GEMM pass, the shape rule
 MAX_SMEM = 232448     # dynamic shared memory a block may use on sm_90
+CS = 2                # blocks per sample: a cluster (csrc: CS)
+NCW = 8               # consumer warps of a block (csrc: NCW)
+SUB_ROWS = 32         # weight rows (GEMM columns) per sub-unit (csrc)
+SUB_BYTES = SUB_ROWS * KC * 2
+CHUNK_SUBS = 8        # sub-units per bulk-copied chunk (csrc)
+CHUNK_BYTES = CHUNK_SUBS * SUB_BYTES
+MAX_DEPTH = 8         # chunks of the ring, at most (the launch's `depth`)
+PAD = 8               # grid row pitch = C + PAD bf16 (csrc: PAD)
+GMAX = 32             # GroupNorm groups of a block's half, at most (csrc)
 _VMEM_BUDGET = 12 * 1024 * 1024   # the JAX package's footprint rule
 
 launches = 0          # kernel launches since the last reset
@@ -204,25 +214,200 @@ def critic_trunk_grad_plain(a0: torch.Tensor, layers, head_w: torch.Tensor,
     return torch.where(up(a0) >= 0, d, slope * d).to(cdt)
 
 
+# ---- the kernel's plan: passes, the weight stream, shared memory ---------
+# (each formula is the csrc's, which tests/test_torch_k2_layout.py replays)
+
+def passes(m0: int, chans) -> list[dict]:
+    """The GEMM passes of one block in the order it runs them: forward
+    layers 1..L, then the input gradients of layers L..1.
+
+    A pass's rows (M) are output positions (forward: the ``mo x mo`` output;
+    reverse: each of 4 parity planes ``mo x mo`` of the input, with its own 4
+    taps), its columns (N) the block's half of the output channels, and K
+    runs over ``steps`` = taps x ``kch`` chunks of 64 channels.  The weights
+    come as sub-units of 32 columns x 64 K values, ``ng`` per plane and step;
+    a warp task is one 16 x 32 output tile, ``ksplit`` tasks per tile where
+    the tiles are fewer than the consumer warps (each takes every
+    ``ksplit``-th step)."""
+    n = len(chans) - 1
+    out = []
+    for i in range(2 * n):
+        fwd = i < n
+        lay = i + 1 if fwd else 2 * n - i
+        ci, co = chans[lay - 1], chans[lay]
+        mo = m0 >> lay
+        kch = (ci if fwd else co) // KC
+        planes = 1 if fwd else 4
+        ng = (co if fwd else ci) // CS // SUB_ROWS
+        ntiles = planes * (mo * mo // 16) * ng
+        ksplit = 1
+        while ntiles * ksplit * 2 <= NCW:
+            ksplit *= 2
+        steps = (16 if fwd else 4) * kch
+        out.append(dict(fwd=fwd, layer=lay, mo=mo, kch=kch, steps=steps,
+                        planes=planes, ng=ng, mt=mo * mo // 16,
+                        ntiles=ntiles, ksplit=ksplit,
+                        chunks=steps * planes * ng // CHUNK_SUBS))
+    return out
+
+
+def stream_elems(chans) -> int:
+    """bf16 elements of one block's weight stream (half of both
+    directions' weights)."""
+    return sum(2 * 16 * ci * co for ci, co in zip(chans[:-1], chans[1:])) // CS
+
+
+def _grid_bytes(m: int, c: int) -> int:
+    return (m + 2) * (m + 2) * (c + PAD) * 2
+
+
+def smem_layout(m0: int, chans, depth: int) -> dict:
+    """Byte offsets of a block's shared memory (csrc: make_layout): the ring
+    of ``depth`` chunks, a zero-haloed bf16 grid per layer boundary (a_l on
+    the way forward, the cotangent of y_l on the way back, all channels),
+    the block's half of each trunk layer's y in bf16, the per-(M tile,
+    channel) partial sums, the scratch of the split-K sums, the GroupNorm
+    statistics, the layers' bias / gamma / beta and the block's half of
+    the head, and the mbarriers."""
+    n = len(chans) - 1
+    off, lay = 0, {"ring": 0}
+    off += depth * CHUNK_BYTES
+    lay["grid"] = []
+    for i in range(n + 1):
+        lay["grid"].append(off)
+        off += _grid_bytes(m0 >> i, chans[i])
+    lay["y"] = [0]
+    for i in range(1, n + 1):
+        lay["y"].append(off)
+        off += (m0 >> i) ** 2 * (chans[i] // CS) * 2
+    lay["part"] = off
+    off += 2 * max((m0 >> i) ** 2 // 16 * (chans[i] // CS)
+                   for i in range(1, n + 1)) * 4
+    lay["red"] = off
+    off += max((p["ntiles"] * (p["ksplit"] - 1) for p in passes(m0, chans)),
+               default=0) * 512 * 4
+    lay["stats"] = off
+    off += 6 * GMAX * 4       # mean, rstd of two layers; the two bwd sums
+    lay["par"] = off          # bias, gamma, beta per layer; the head's half
+    off += 3 * sum(chans[1:]) * 4 + 16 * (chans[-1] // CS) * 4
+    lay["bars"] = off
+    off += (2 * depth + 1) * 8
+    lay["total"] = off
+    return lay
+
+
+def ring_depth(m0: int, chans) -> int:
+    """The deepest ring (2 .. MAX_DEPTH chunks) whose block fits the card's
+    shared memory; ValueError where not even 2 fit."""
+    for depth in range(MAX_DEPTH, 1, -1):
+        if smem_layout(m0, chans, depth)["total"] <= MAX_SMEM:
+            return depth
+    raise ValueError(f"K2 fused needs {smem_layout(m0, chans, 2)['total']} "
+                     f"bytes of shared memory per block at channels "
+                     f"{list(chans)}, side {m0}; a block has {MAX_SMEM}")
+
+
+def pack_weights_plain(ws) -> torch.Tensor:
+    """The weight streams of both blocks of a sample, [CS, stream_elems]
+    bf16, from each trunk layer's HWIO [4, 4, Ci, Co] weight (csrc:
+    critic_trunk_pack_kernel).
+
+    Block r's stream holds the passes in their order; a pass is its steps,
+    a step its planes, a plane its ``ng`` sub-units of 32 rows (GEMM columns
+    of block r's half) x 64 K values.  Forward, step (tap, kc), row n, k:
+    ``w[tap // 4, tap % 4, kc*64 + k, r*Nh + 32*ng + n]``.  Reverse, step (tt
+    = (ry, rx), kc), plane (cy, cx): ``w[1 - cy + 2ry, 1 - cx + 2rx, r*Nh +
+    32*ng + n, kc*64 + k]``.  In a row the 16-byte unit u (8 K values) is
+    stored at u ^ (n % 8), so that ldmatrix's eight rows of one unit fall in
+    eight bank groups without padding the rows."""
+    n = len(ws)
+    chans = [ws[0].shape[2]] + [w.shape[3] for w in ws]
+    swz = torch.arange(8)[None, :] ^ (torch.arange(SUB_ROWS)[:, None] % 8)
+    streams = []
+    for r in range(CS):
+        parts = []
+        for p in passes(4 * 2 ** n, chans):
+            w = ws[p["layer"] - 1].float()
+            ci, co = w.shape[2], w.shape[3]
+            if p["fwd"]:
+                nh = co // CS
+                t = w.reshape(16, ci // KC, KC, CS, nh // SUB_ROWS, SUB_ROWS)
+                t = t[:, :, :, r].permute(0, 1, 3, 4, 2).reshape(
+                    -1, 1, nh // SUB_ROWS, SUB_ROWS, KC)
+            else:
+                nh = ci // CS
+                # [ry, 1 - cy, rx, 1 - cx, ci, co] -> [ry, cy, rx, cx, ...]
+                t = w.reshape(2, 2, 2, 2, ci, co).flip(1, 3)
+                t = t.reshape(2, 2, 2, 2, CS, nh // SUB_ROWS, SUB_ROWS,
+                              co // KC, KC)[:, :, :, :, r]
+                # -> [ry, rx, kc, cy, cx, ng, n, k]
+                t = t.permute(0, 2, 6, 1, 3, 4, 5, 7).reshape(
+                    -1, 4, nh // SUB_ROWS, SUB_ROWS, KC)
+            t = t.reshape(*t.shape[:-1], 8, 8)
+            idx = swz.reshape(1, 1, 1, SUB_ROWS, 8, 1).expand(
+                *t.shape[:-1], 8)
+            parts.append(torch.gather(t, -2, idx).reshape(-1))
+        streams.append(torch.cat(parts))
+    return torch.stack(streams).to(torch.bfloat16)
+
+
 # ---- the wrapper -----------------------------------------------------------
 
 def _lib():
     lib = build.load("critic_grad")
     fn = lib.critic_trunk_grad
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
-        lib.critic_trunk_grad_smem.argtypes = [ctypes.c_int] * 5
+        lib.critic_trunk_pack.argtypes = ([ctypes.c_void_p] * 3
+                                          + [ctypes.c_int] * 4
+                                          + [ctypes.c_void_p])
+        lib.critic_trunk_pack.restype = ctypes.c_int
+        lib.critic_trunk_grad_smem.argtypes = [ctypes.c_int] * 6
         lib.critic_trunk_grad_smem.restype = ctypes.c_int
     return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned: the kernel copies its inputs 16
+    bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pack_weights(ws) -> torch.Tensor:
+    """``pack_weights_plain`` by one launch of the pack kernel for CUDA
+    weights (f32 HWIO, one or two layers); the plain version on the CPU.
+    Training changes the weights after every call, so nothing is cached."""
+    if ws[0].device.type == "cpu":
+        return pack_weights_plain(ws)
+    chans = [ws[0].shape[2]] + [w.shape[3] for w in ws]
+    out = torch.empty((CS, stream_elems(chans)), dtype=torch.bfloat16,
+                      device=ws[0].device)
+    ptrs = [build.ptr(w.contiguous()) for w in ws]
+    ptrs += [ctypes.c_void_p(None)] * (2 - len(ptrs))
+    c3 = chans + [0] * (3 - len(chans))
+    with torch.cuda.device(out.device):
+        err = _lib().critic_trunk_pack(*ptrs, build.ptr(out), len(ws), *c3,
+                                       build.stream_ptr(out.device))
+    build.check(err, "critic_trunk_pack")
+    return out
 
 
 PHASES = ("stage a0", "conv", "GroupNorm", "GroupNorm bwd", "conv dx")
 
 
 def phase_names(n_layers: int) -> list[str]:
-    """Names of the intervals between the kernel's ``probe`` stamps."""
+    """Names of the intervals between the kernel's ``probe`` stamps (block
+    0 of the first cluster, consumer thread 0): a0 staged and the cluster
+    met; per forward layer the GEMM pass, then its epilogue (bias,
+    statistics, a_l to both blocks); per reverse layer its cotangent made
+    and exchanged (the head's for the last layer, else the epilogue of the
+    pass above: LeakyReLU and GroupNorm backward), then its input-gradient
+    GEMM (for layer 1 with the store of dy0)."""
     fwd = [f"layer {i} {ph}" for i in range(1, n_layers + 1)
            for ph in PHASES[1:3]]
     bwd = [f"layer {i} {ph}" for i in range(n_layers, 0, -1)
@@ -237,9 +422,11 @@ def critic_trunk_grad(a0: torch.Tensor, layers, head_w: torch.Tensor, *,
     arguments as ``critic_trunk_grad_plain``.  On the card ``a0`` is bf16,
     the parameters f32, one or two trunk layers (M0 = 8 or 16), channels in
     multiples of 64, and GroupNorm on every layer or on none, with group
-    size 8 or 16.  ``probe``, an int64 CUDA tensor of at least 2 + 4 *
-    layers entries, receives the first block's time stamps in nanoseconds,
-    one per boundary of ``phase_names``."""
+    size 8 or 16.  One call is two launches: the weight pack, then the
+    kernel (clusters of CS blocks, one cluster per sample).  ``probe``, an
+    int64 CUDA tensor of at least 2 + 4 * layers entries, receives the
+    first block's time stamps in nanoseconds, one per boundary of
+    ``phase_names``."""
     if a0.device.type == "cpu":
         return critic_trunk_grad_plain(a0, layers, head_w, slope=slope,
                                        group_size=group_size)
@@ -290,28 +477,27 @@ def critic_trunk_grad(a0: torch.Tensor, layers, head_w: torch.Tensor, *,
             or not probe.is_contiguous() or probe.numel() < 2 + 4 * n):
         raise ValueError(f"K2 fused probe must be a contiguous int64 tensor "
                          f"of >= {2 + 4 * n} entries on {a0.device}")
+    depth = ring_depth(m0, chans)
     lib = _lib()
-    c3 = chans + [0] * (3 - len(chans))
-    smem = lib.critic_trunk_grad_smem(n, m0, *c3)
-    if smem > MAX_SMEM:
-        raise ValueError(f"K2 fused needs {smem} bytes of shared memory per "
-                         f"sample at channels {chans}, side {m0}; a block "
-                         f"has {MAX_SMEM}")
+    wpk = pack_weights([w for w, *_ in layers])
     none = ctypes.c_void_p(None)
-    keep, ptrs = [], []         # keep: packed tensors alive across the launch
-    for w, bias, gamma, beta in layers:
-        packed = [pack_taps(w), pack_taps_bwd(w), bias.contiguous()]
+    keep, ptrs = [], []         # keep: tensors alive across the launch
+    for _w, bias, gamma, beta in layers:
+        vecs = [_aligned(bias)]
         if has_gn:
-            packed += [gamma.contiguous(), beta.contiguous()]
-        keep += packed
-        ptrs += [build.ptr(t) for t in packed] + [none] * (5 - len(packed))
-    ptrs += [none] * (10 - len(ptrs))
-    head = head_w.contiguous()
+            vecs += [_aligned(gamma), _aligned(beta)]
+        keep += vecs
+        ptrs += [build.ptr(t) for t in vecs] + [none] * (3 - len(vecs))
+    ptrs += [none] * (6 - len(ptrs))
+    head = _aligned(head_w)
+    a0 = _aligned(a0)
+    c3 = chans + [0] * (3 - len(chans))
     dy0 = torch.empty_like(a0)
     with torch.cuda.device(a0.device):
         err = lib.critic_trunk_grad(
-            build.ptr(a0), build.ptr(dy0), *ptrs, build.ptr(head), b, n, m0,
-            *c3, group_size if has_gn else 0, float(slope), EPS,
+            build.ptr(a0), build.ptr(dy0), build.ptr(wpk), wpk.shape[1],
+            *ptrs, build.ptr(head), b, n, m0, *c3,
+            group_size if has_gn else 0, float(slope), EPS, depth,
             none if probe is None else build.ptr(probe),
             build.stream_ptr(a0.device))
     build.check(err, "critic_trunk_grad")

@@ -199,6 +199,66 @@ def test_k2_fused_probe_stamps_every_phase(cuda):
                               probe=probe[:4])
 
 
+def test_k2_fused_is_bit_reproducible_at_wgan_gp_32(cuda):
+    from levelgan_torch.kernels import critic_grad as k2f
+    a0, layers, head_w = _trunk_inputs(64, 16, (64, 128, 256), True, cuda,
+                                       seed=7)
+    a0 = a0.to(torch.bfloat16)
+    first = k2f.critic_trunk_grad(a0, layers, head_w)
+    assert torch.equal(k2f.critic_trunk_grad(a0, layers, head_w), first)
+
+
+@pytest.mark.parametrize("b", [1, 3, 65])
+def test_k2_fused_odd_batches(cuda, b):
+    """One cluster of two blocks per sample: a batch of one, an odd batch,
+    and one sample beyond the 64 that fill the card's SMs twice over."""
+    from levelgan_torch.kernels import critic_grad as k2f
+    a0, layers, head_w = _trunk_inputs(b, 16, (64, 128, 256), True, cuda,
+                                       seed=8)
+    a0 = a0.to(torch.bfloat16)
+    got = k2f.critic_trunk_grad(a0, layers, head_w)
+    _assert_samples_close(got, k2f.critic_trunk_grad_plain(a0, layers,
+                                                           head_w))
+    # each sample alone gives the same bits
+    for i in (0, b - 1):
+        assert torch.equal(k2f.critic_trunk_grad(a0[i:i + 1].contiguous(),
+                                                 layers, head_w), got[i:i + 1])
+
+
+@pytest.mark.parametrize("m0,chans", [(16, (64, 128, 256)), (8, (64, 128)),
+                                      (16, (64, 64, 128))])
+def test_k2_fused_pack_and_shared_memory_match_the_plain_plan(cuda, m0,
+                                                              chans):
+    from levelgan_torch.kernels import critic_grad as k2f
+    ws = [torch.randn((4, 4, ci, co), device=cuda)
+          for ci, co in zip(chans[:-1], chans[1:])]
+    assert torch.equal(k2f.pack_weights(ws).cpu(),
+                       k2f.pack_weights_plain([w.cpu() for w in ws]))
+    lib = k2f._lib()
+    c3 = list(chans) + [0] * (3 - len(chans))
+    for depth in (2, k2f.ring_depth(m0, chans)):
+        assert lib.critic_trunk_grad_smem(len(chans) - 1, m0, *c3, depth) == \
+            k2f.smem_layout(m0, chans, depth)["total"]
+
+
+def test_k2_fused_refused_cluster_launch_raises(cuda, monkeypatch):
+    """A ring too deep for the shared memory: the launch is refused, the
+    wrapper raises once, and the next call runs."""
+    from levelgan_torch.kernels import critic_grad as k2f
+    a0, layers, head_w = _trunk_inputs(4, 16, (64, 128, 256), True, cuda,
+                                       seed=9)
+    a0 = a0.to(torch.bfloat16)
+    before = k2f.critic_trunk_grad(a0, layers, head_w)
+    assert k2f.smem_layout(16, (64, 128, 256), 12)["total"] > k2f.MAX_SMEM
+    n = k2f.launches
+    monkeypatch.setattr(k2f, "ring_depth", lambda *a: 12)
+    with pytest.raises(RuntimeError, match="critic_trunk_grad"):
+        k2f.critic_trunk_grad(a0, layers, head_w)
+    assert k2f.launches == n
+    monkeypatch.undo()
+    assert torch.equal(k2f.critic_trunk_grad(a0, layers, head_w), before)
+
+
 def test_k2_fused_raises_for_f32_and_bad_shapes(cuda):
     from levelgan_torch.kernels import critic_grad as k2f
     a0, layers, head_w = _trunk_inputs(2, 8, (64, 128), True, cuda)
