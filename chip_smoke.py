@@ -27,7 +27,11 @@ Needs one CUDA card (exits non-zero without one, and without the
 6. training kernel parity + timing at the training shapes (B = 64) of
    gumbel_64 and wgan_gp_32: K1 forward, the K1L stage with residuals and
    K1 bwd (whole and by launch,
-   on residuals from K1 forward) at every stage they serve, K1L bwd at
+   on residuals from K1 forward) at every stage they serve, K1L bwd (the
+   whole backward: dx, dyf, dgamma, dbeta on residuals from the stage
+   kernel, two calls bit for bit; beside it gn_act_bwd_folded, dw and the
+   whole UpsampleRowsFn.backward, the first block's phases, and the
+   device kernels of one backward call: the kernel and dw's only) at
    gumbel_64 up3 and up2, K2 core fwd / bwd on [64, 32768] and [64, 8192]
    f32, and K2 fused (the critic trunk's forward and input gradient) at
    the 32x32 and 16x16 critics, with GroupNorm off and with group size 8
@@ -41,8 +45,9 @@ Needs one CUDA card (exits non-zero without one, and without the
 7. the training paths through ``levelgan_torch.cli.train`` (corpus cut to
    256 levels): gumbel_64 for 10 steps, wgan_gp_32 with
    ``model.pallas_gp=fused`` for 30 and wgan_gp_32_structural with it for
-   10, each with checked metrics, checkpoint keys and launch counters,
-   then 1,024 levels exported from each checkpoint;
+   10, each with checked metrics, checkpoint keys and launch counters
+   (and no call of the plain gn_act_bwd_folded on a CUDA tensor), then
+   1,024 levels exported from each checkpoint;
 8. one critic iteration and one generator update through the kernels held
    against the plain path (``plain=True``, plain GP) on the same state,
    batch and noise, at gumbel_64 (K2 core) and at wgan_gp_32 (fused GP):
@@ -74,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
@@ -132,7 +138,8 @@ BF16_RATIO, BF16_SLACK = 2.0, 0.02
 SPIN_CYCLES = 20_000_000     # ~10 ms of SM clock: first spin of queued_ms
 # the port's kernels in a profile, by name
 OURS = ("upsample_block_fwd_kernel", "upsample_rows_stage_kernel", "k1_bwd_",
-        "dx_gather_kernel", "norm_penalty_", "critic_trunk_grad_kernel")
+        "dx_gather_kernel", "upsample_rows_bwd_kernel", "norm_penalty_",
+        "critic_trunk_grad_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -686,7 +693,6 @@ def train_kernel_parity(cfg, device, rows):
     (the export phase holds it at B = 1024 only).  gumbel_64 also holds K1L
     bwd at a second shape (up2)."""
     import torch
-    import torch.nn.functional as F
     from levelgan_torch.kernels import gp_penalty as k2
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.kernels import upsample_rows as k1l
@@ -701,7 +707,6 @@ def train_kernel_parity(cfg, device, rows):
                                          batch=b)
         gen = torch.Generator(device).manual_seed(300 + i)
         flops = 32.0 * b * h * h * ci * co        # the dx contraction
-        wt_lib = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
         fits = k1.fits(h, h)
         kernels = ["K1 bwd"] if fits else ["K1L bwd"]
         if first and name == "up2":
@@ -756,42 +761,44 @@ def train_kernel_parity(cfg, device, rows):
                         w, gamma, beta, mu, rstd, g, ypre, slope=slope,
                         group_size=gs)
 
-                # one autograd call of the library chain for the same stage:
-                # dx, dgamma, dbeta (dw is outside the kernel, as in JAX)
-                xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
-                gl = gamma.to(bf16).requires_grad_()
-                bl = beta.to(bf16).requires_grad_()
-                yl = F.leaky_relu(F.group_norm(
-                    F.conv_transpose2d(xl, wt_lib, stride=2, padding=1),
-                    co // gs, gl, bl, 1e-5), slope)
-                gl_ct = g.permute(0, 3, 1, 2).contiguous()
-
-                def library():
-                    return torch.autograd.grad(yl, (xl, gl, bl), gl_ct,
-                                               retain_graph=True)
-
+                library = library_stage_bwd(x, w, gamma, beta, g, gs, slope)
                 errs = errs_of(("dx", "dy", "dgamma", "dbeta"), run(),
                                plain(), SUM_TOL)
                 nbytes = (3 * g.numel() * 2 + b * h * h * ci * 2
                           + 16 * ci * co * 2 + 2 * b * co * 4 + 4 * co * 4)
             else:
-                dyf = torch.randn((b, h, h, 4 * co), generator=gen,
-                                  device=device).to(bf16)
-                dy_lib = k1l.unfold(dyf).permute(0, 3, 1, 2).contiguous()
+                # the whole backward on residuals from the stage kernel
+                _, yf, mu, rstd = k1l.upsample_block_rows(
+                    x, w, gamma, beta, slope=slope, group_size=gs,
+                    residuals=True)
+                g = torch.randn((b, 2 * h, 2 * h, co), generator=gen,
+                                device=device).to(bf16)
+                args = (g, yf, mu, rstd, gamma, beta, w)
 
                 def run():
-                    return k1l.upsample_rows_bwd(dyf, w)
+                    return k1l.upsample_rows_bwd(*args, slope=slope,
+                                                 group_size=gs)
 
                 def plain():
-                    return k1l.conv_rows_bwd_plain(dyf, w)
+                    return k1l.upsample_rows_bwd_plain(*args, slope=slope,
+                                                       group_size=gs)
 
-                def library():
-                    return F.conv2d(dy_lib, wt_lib, stride=2, padding=1)
-
-                errs = errs_of(("dx",), (run(),), (plain(),), SUM_TOL)
-                nbytes = dyf.numel() * 2 + b * h * h * ci * 2 + 16 * ci * co * 2
+                library = library_stage_bwd(x, w, gamma, beta, g, gs, slope)
+                got = run()
+                same = all(torch.equal(a, c) for a, c in zip(got, run()))
+                print(f"  K1L bwd {name}: two calls bit-identical: {same}")
+                if not same:
+                    fail(f"K1L bwd at {name_cfg} {name}: two calls differ")
+                errs = errs_of(("dx", "dyf", "dgamma", "dbeta"), got,
+                               plain(), SUM_TOL)
+                # g and yf in, dyf and dx out, the packed weight, the
+                # statistics and the affine in, dgamma / dbeta out
+                nbytes = (3 * yf.numel() * 2 + b * h * h * ci * 2
+                          + 16 * ci * co * 2 + 2 * b * co * 4 + 4 * co * 4)
             record(rows, name_cfg, kern, name, [b, h, h, ci, co], errs, run,
                    plain, library, flops, nbytes)
+            if kern == "K1L bwd":
+                k1l_bwd_parts(x, args, slope, gs)
             if kern == "K1 bwd":
                 # the call's two launches, each alone
                 gn_args = (g, ypre, mu, rstd, gamma, beta, slope, gs)
@@ -828,6 +835,145 @@ def train_kernel_parity(cfg, device, rows):
            lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
            lambda: torch.mul(g2, scale), 1.0 * b * f, 8.0 * b * f + 3 * 4 * b,
            PEAK_F32_FLOPS)
+
+
+def library_stage_bwd(x, w, gamma, beta, g, gs, slope):
+    """The yardstick of a stage backward (K1 bwd, K1L bwd): one
+    ``torch.autograd.grad`` of the library chain of ``library_stage`` for
+    (x, gamma, beta) at the output cotangent g (bf16, NCHW); w is not a
+    target, so cuDNN computes no dw (dw is outside the kernel, as in
+    JAX)."""
+    import torch
+    import torch.nn.functional as F
+    bf16 = torch.bfloat16
+    w_t = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
+    xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    gl = gamma.to(bf16).requires_grad_()
+    bl = beta.to(bf16).requires_grad_()
+    yl = F.leaky_relu(F.group_norm(
+        F.conv_transpose2d(xl, w_t, stride=2, padding=1), w.shape[-1] // gs,
+        gl, bl, 1e-5), slope)
+    gl_ct = g.permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(yl, (xl, gl, bl), gl_ct, retain_graph=True)
+    return library
+
+
+def kernel_names(fn, tries: int = 3) -> dict | None:
+    """Device kernels of one call of ``fn`` by name -> count (torch.profiler,
+    after a warm-up call), or None where the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows:
+            return {e.key: e.count for e in rows}
+    return None
+
+
+def aten_ops(fn) -> set:
+    """The ATen operations one call of ``fn`` dispatches (after a warm-up
+    call), recorded on the host: unlike the profiler's device records,
+    none go missing.  A kernel launched through ctypes is not one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    with Record():
+        fn()
+    return seen
+
+
+# what the K1L bwd wrapper dispatches itself: its outputs' allocation
+WRAPPER_OPS = {"aten.empty.memory_format", "aten.empty_like.default",
+               "aten.select.int"}
+
+
+def k1l_bwd_parts(x, args, slope, gs):
+    """The K1L backward beside the pieces the parent's call ran: the
+    parent's eager GroupNorm / LeakyReLU pass (``gn_act_bwd_folded``, plain
+    PyTorch, on the card here only to be timed), dw (``weight_grad_folded``)
+    and the whole ``UpsampleRowsFn.backward`` as autograd runs it; the
+    kernel's cluster, grid and ring; and the device kernels of one backward
+    call (``UpsampleRowsFn.backward`` on this thread).  Fails unless that
+    call dispatches only dw's ATen operations and the wrapper's
+    allocations beside the kernel."""
+    import torch
+    from levelgan_torch.kernels import upsample_rows as k1l
+    g, yf, mu, rstd, gamma, beta, w = args
+    b, h, _, ci = x.shape
+    co = w.shape[-1]
+    dyf = k1l.upsample_rows_bwd(*args, slope=slope, group_size=gs)[1]
+    t_gn = queued_ms(lambda: k1l.gn_act_bwd_folded(
+        g, yf, mu, rstd, gamma, beta, slope=slope, group_size=gs))
+    t_dw = queued_ms(lambda: k1l.weight_grad_folded(x, dyf))
+    leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+    y = k1l.UpsampleRowsFn.apply(*leaves, slope, gs)
+
+    def whole():
+        return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+    t_whole = queued_ms(whole)
+    rt, slots = k1l.bwd_tile(h, h, ci, co, gs)
+    maxc = k1l.max_bwd_clusters(x.device, h, h, rt, ci, co, slots)
+    print(f"    of that: gn_act_bwd_folded alone (the parent's eager pass) "
+          f"{t_gn:.5f} ms; weight_grad_folded (dw) {t_dw:.5f} ms; "
+          f"UpsampleRowsFn.backward whole (the kernel, then dw; "
+          f"autograd.grad) {t_whole:.5f} ms")
+    print(f"    clusters of {h // rt} blocks ({rt} folded rows each), "
+          f"{min(b, maxc)} persistent clusters (the card holds {maxc} at "
+          f"once), {32 * k1l.bwd_warps(h, rt, ci)} threads and "
+          f"{k1l.bwd_smem(h, rt, ci, co, slots)} bytes of shared memory a "
+          "block, weight "
+          + ("resident" if slots == co // 8 else f"ring of {slots}"))
+    probe = torch.zeros(len(k1l.BWD_PHASES), dtype=torch.int64,
+                        device=x.device)
+    k1l.upsample_rows_bwd(*args, slope=slope, group_size=gs, probe=probe)
+    torch.cuda.synchronize()
+    print("    first block by phase (us, summed over its samples): "
+          + ", ".join(f"{n} {t / 1e3:.2f}" for n, t in zip(
+              k1l.BWD_PHASES, probe.tolist()))
+          + f"; block total {sum(probe.tolist()) / 1e3:.2f}")
+    # the backward as autograd calls it, on this thread
+    ctx = types.SimpleNamespace(saved_tensors=(x, w, gamma, beta, yf, mu,
+                                               rstd), slope=slope,
+                                group_size=gs)
+
+    def backward():
+        return k1l.UpsampleRowsFn.backward(ctx, g)
+
+    bwd_ops = aten_ops(backward)
+    dw_ops = aten_ops(lambda: k1l.weight_grad_folded(x, dyf))
+    extra = sorted(bwd_ops - dw_ops - WRAPPER_OPS)
+    print(f"    ATen operations of one backward call: {len(bwd_ops)} kinds, "
+          f"beyond dw's {len(dw_ops)} and the wrapper's allocations: "
+          f"{extra or 'none'}")
+    if extra:
+        fail(f"the K1L backward dispatched more than dw's operations: "
+             f"{extra}")
+    names = kernel_names(backward)
+    dw_names = kernel_names(lambda: k1l.weight_grad_folded(x, dyf))
+    if names is None or dw_names is None:
+        print("    note: the profiler recorded no device kernels of the "
+              "backward call: its kernel list is not measured")
+        return
+    print(f"    device kernels of one backward call: {sum(names.values())} "
+          f"launches, {len(names)} kinds, of which dw's "
+          f"{sum(dw_names.values())} (the profiler drops records now and "
+          "then; the ATen operations above are the check): "
+          + "; ".join(f"x{n} {k[:60]}" for k, n in names.items()))
 
 
 def k1l_training_row(rows, config, stage, x, w, gamma, beta, slope, gs,
@@ -1076,23 +1222,38 @@ def train_path(name, overrides, steps, workdir):
     from levelgan_torch.cli import export as cli_export
     from levelgan_torch.cli import train as cli_train
     from levelgan_torch.config import preset
+    from levelgan_torch.kernels import upsample_rows as k1l
 
     m = preset(name).model
     out = os.path.join(workdir, f"train_{name}")
+    # the K1L backward's plain pass may run on CPU tensors only
+    eager_gn, on_card = k1l.gn_act_bwd_folded, []
+
+    def spy(g, *a, **kw):
+        on_card.append(g.device.type == "cuda")
+        return eager_gn(g, *a, **kw)
+
     reset_counts()
+    k1l.gn_act_bwd_folded = spy
     t0 = time.perf_counter()
-    rc = cli_train.main(["--preset", name, *overrides, "--set",
-                         f"train.steps={steps}", "--set", "io.log_every=10",
-                         "--set", f"data.corpus_size={CORPUS_CUT}", "--out",
-                         out])
-    torch.cuda.synchronize()
+    try:
+        rc = cli_train.main(["--preset", name, *overrides, "--set",
+                             f"train.steps={steps}", "--set",
+                             "io.log_every=10", "--set",
+                             f"data.corpus_size={CORPUS_CUT}", "--out", out])
+        torch.cuda.synchronize()
+    finally:
+        k1l.gn_act_bwd_folded = eager_gn
     wall = time.perf_counter() - t0
     counts = read_counts()
     if rc != 0:
         fail(f"train CLI returned {rc}")
+    if any(on_card):
+        fail(f"gn_act_bwd_folded ran on CUDA tensors {sum(on_card)} times")
     expect = {k: steps * v for k, v in PER_STEP[name].items()}
     print(f"  trained {steps} steps through the CLI in {wall:.3f} s "
-          f"(wall, incl. corpus carving and checkpoint); launches {counts}")
+          f"(wall, incl. corpus carving and checkpoint); launches {counts}; "
+          f"gn_act_bwd_folded on CUDA tensors: {sum(on_card)} times")
     if counts != expect:
         fail(f"training launches {counts} != expected {expect}")
     with open(os.path.join(out, "metrics.jsonl")) as fh:
@@ -1439,7 +1600,9 @@ def kernels_line(records, counts, train_records, train_counts):
                    "levelgan/kernels/upsample_block.py:462"),
         "K1L bwd": ("upsample_rows_bwd",
                     "levelgan_torch/csrc/upsample_rows.cu",
-                    "levelgan/kernels/upsample_rows.py:323"),
+                    "levelgan/kernels/upsample_rows.py:323 (with the XLA "
+                    "pass before it, levelgan/kernels/upsample_rows.py:"
+                    "453-479)"),
         "K2 core fwd": ("norm_penalty_fwd", "levelgan_torch/csrc/gp_penalty.cu",
                         "levelgan/kernels/gp_penalty.py:81"),
         "K2 core bwd": ("norm_penalty_bwd", "levelgan_torch/csrc/gp_penalty.cu",

@@ -194,82 +194,13 @@ __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// ---- mbarriers and bulk copies ---------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// The wait that acquires what the peer block released at cluster scope.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
-      "%1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
-      "}\n" ::"r"(bar)
-      : "memory");
-}
-
-// Arrive on the barrier at the same offset in block `rank` of the cluster,
-// releasing this thread's earlier writes (to that block's shared memory
-// too) at cluster scope.
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int rank) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n"
-      "}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+using lgt::bulk_copy;
+using lgt::mbar_arrive;
+using lgt::mbar_arrive_remote;
+using lgt::mbar_expect_tx;
+using lgt::mbar_init;
+using lgt::mbar_wait;
+using lgt::mbar_wait_cluster;
 
 // The consumer warps' own barrier (the producer warp takes no part).
 __device__ __forceinline__ void consumer_sync() {

@@ -1,7 +1,7 @@
-// Shared pieces of the upsample-stage kernels (upsample_block.cu,
-// upsample_rows.cu): the bf16 tensor-core product and its fragments, the
-// asynchronous copies of the staging rings, and the input-gradient GEMM
-// that K1 bwd and K1L bwd share.
+// Shared pieces of the port's kernels (upsample_block.cu, upsample_rows.cu,
+// critic_grad.cu): the bf16 tensor-core product and its fragments, the
+// asynchronous copies of the staging rings, and mbarriers, bulk copies and
+// stores into another block's shared memory.
 //
 // The transposed conv is computed in parity form (no multiplies against
 // inserted zeros).  For output parity (a, b) and taps (r, s) in {0,1}^2,
@@ -266,251 +266,114 @@ __device__ __forceinline__ void zero_ring(unsigned char* smem, int stages,
 }
 
 // ---------------------------------------------------------------------------
-// Backward input gradient of the transposed conv (K1 bwd's second launch,
-// K1L bwd)
-//
-// The exact transpose of the parity form above: with dy_(a,b)[u, v] =
-// dy[2u+a, 2v+b] the pre-norm cotangent of output parity (a, b),
-//
-//     dx[i, j, ci] = sum_{(a,b),r,s,c} dy_(a,b)[i+1-a-r, j+1-b-s, c]
-//                                      * w[a+2r, b+2s, ci, c]
-//
-// (zero outside the plane).  A GEMM with M = B*H*W positions of x, N = Ci
-// and K = 16 taps x Co.  A block of 8 warps owns up to MROWS_DX = 128
-// positions and NB32 input channels: `nsd` whole samples where a sample has
-// at most 128 positions (8 at a 4x4 input, so that the block still has 8
-// warps of work and the card as many blocks as B*H*W/128 x Ci/32), else
-// `rt` rows of one sample.  Each sample slot has its own parity plane with a
-// one-position zero halo in shared memory, so a shifted window never reads
-// the neighbouring sample.  Per step (one parity, one chunk of KC32
-// cotangent channels) the block needs the plane and the parity's 4 taps;
-// steps stream through two buffers filled by cp.async, so the copies of
-// step t + 1 run under the products of step t, with one barrier per step
-// (on an H100 no shape gained from a deeper ring).  The taps come
-// pre-packed (one step of one block is one contiguous 8 KB run), the plane
-// through element strides, so the same
-// routine serves K1's merged dy [B, 2H, 2W, Co] and K1L's folded dyf
-// [B, H, W, 4Co].  Each warp runs one 16-row M tile against 4 n8 tiles with
-// ldmatrix fragments (3 ldmatrix.x4 per 4 mma).  With `dgamma` non-null the
-// grid's first blocks (one per 256 channels) sum K1's per-sample partials
-// s1 / s2 [B, Co] over the batch in index order (dbeta, dgamma) beside the
-// GEMM blocks.
+// mbarriers, bulk copies and stores into another block's shared memory
+// (K2 fused, K1L bwd)
 // ---------------------------------------------------------------------------
 
-constexpr int MROWS_DX = 128;      // positions (M) per block, at most
-constexpr int DX_THREADS = MROWS_DX / 16 * 32;
-constexpr int DX_MAXE = 3;         // plane positions a thread copies per step
-constexpr int DX_STAGES = 2;       // buffers of the ring
-
-// Rows of the plane ring of one dx block: the haloed sample slots and, where
-// the block's M has dummy rows (fewer than MROWS_DX positions), the zero
-// rows those read.
-__host__ __device__ __forceinline__ int dx_plane_rows(int W, int nsd, int rt) {
-  const int zero = nsd * rt * W < MROWS_DX ? 2 * (W + 2) + 3 : 0;
-  return nsd * (rt + 2) * (W + 2) + zero;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-template <bool FOLDED>
-__global__ void __launch_bounds__(DX_THREADS)
-dx_gather_kernel(const __nv_bfloat16* __restrict__ dy,
-                 const __nv_bfloat16* __restrict__ wpk,
-                 __nv_bfloat16* __restrict__ dx, const float* __restrict__ s1,
-                 const float* __restrict__ s2, float* __restrict__ dgamma,
-                 float* __restrict__ dbeta, int B, int H, int W, int Ci,
-                 int Co, int nsd, int rt, int nmb, int naff) {
-  extern __shared__ __align__(16) unsigned char smem_dx[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  // a 1-D grid: first the naff blocks of the batch sums, then the GEMM
-  // blocks, M fastest
-  if (static_cast<int>(blockIdx.x) < naff) {
-    // dbeta = sum_b s1, dgamma = sum_b s2, one thread per channel
-    const int c = blockIdx.x * DX_THREADS + tid;
-    if (c < Co) {
-      float a1 = 0.f, a2 = 0.f;
-      for (int b = 0; b < B; ++b) {
-        a1 += s1[static_cast<size_t>(b) * Co + c];
-        a2 += s2[static_cast<size_t>(b) * Co + c];
-      }
-      dbeta[c] = a1;
-      dgamma[c] = a2;
-    }
-    return;
-  }
-  const int gid = blockIdx.x - naff;
-  const int by = gid / nmb, bx = gid - by * nmb;
-
-  const int wp = W + 2, per = rt * W, psd = (rt + 2) * wp;
-  const int prows = dx_plane_rows(W, nsd, rt);
-  const int stage_bytes = (prows + 4 * NB32) * ROWB;
-  const int hb = H / rt;
-  const int sblk = bx / hb, row0 = (bx - sblk * hb) * rt;
-  const int b0 = sblk * nsd, n0 = by * NB32;
-  const int mrows = nsd * per;
-  const int kcn = Co / KC32, nsteps = 4 * kcn;
-  const uint32_t sbase = smem_addr(smem_dx);
-
-  zero_ring(smem_dx, DX_STAGES, stage_bytes, prows);
-
-  // what this thread copies per step: half a channel chunk (32 bytes) of up
-  // to DX_MAXE plane positions, and 32 bytes of the taps
-  const int crows = rt == H ? H : rt + 2;      // plane rows that hold data
-  const int cfirst = rt == H ? 0 : row0 - 1;
-  const int ncopy = nsd * crows * W;
-  size_t src[DX_MAXE];
-  int dst[DX_MAXE];
-#pragma unroll
-  for (int e = 0; e < DX_MAXE; ++e) {
-    const int pidx = (tid >> 1) + e * (DX_THREADS / 2);
-    dst[e] = -1;
-    src[e] = 0;
-    if (pidx < ncopy) {
-      const int s = pidx / (crows * W), p = pidx - s * crows * W;
-      const int lr = p / W, ic = p - lr * W, ir = cfirst + lr, b = b0 + s;
-      if (b < B && ir >= 0 && ir < H) {
-        dst[e] = ((s * psd + (ir - row0 + 1) * wp + ic + 1) * LD32 +
-                  (tid & 1) * 16) * 2;
-        src[e] = FOLDED ? ((static_cast<size_t>(b) * H + ir) * W + ic) * 4 * Co
-                        : ((static_cast<size_t>(b) * 2 * H + 2 * ir) * 2 * W +
-                           2 * ic) * Co;
-        src[e] += (tid & 1) * 16;
-      }
-    }
-  }
-  const __nv_bfloat16* wsrc =
-      wpk + static_cast<size_t>(by) * nsteps * (4 * NB32 * KC32) + tid * 16;
-  const int wdst = prows * ROWB + (tid >> 1) * ROWB + (tid & 1) * 32;
-
-  int it_par = 0, it_kc = 0, it_slot = 0;
-  auto queue_next = [&]() {
-    if (it_par < 4) {
-      const uint32_t base = sbase + it_slot * stage_bytes;
-      const int poff = (FOLDED ? it_par * Co
-                               : ((it_par >> 1) * 2 * W + (it_par & 1)) * Co) +
-                       it_kc * KC32;
-#pragma unroll
-      for (int e = 0; e < DX_MAXE; ++e) {
-        if (dst[e] >= 0) {
-          cp_async16(base + dst[e], dy + src[e] + poff);
-          cp_async16(base + dst[e] + 16, dy + src[e] + poff + 8);
-        }
-      }
-      const __nv_bfloat16* wc =
-          wsrc + static_cast<size_t>(it_par * kcn + it_kc) * (4 * NB32 * KC32);
-      cp_async16(base + wdst, wc);
-      cp_async16(base + wdst + 16, wc + 8);
-      if (++it_kc == kcn) {
-        it_kc = 0;
-        ++it_par;
-      }
-    }
-    cp_async_commit();   // an empty group keeps the wait's count uniform
-    if (++it_slot == DX_STAGES) it_slot = 0;
-  };
-
-  __syncthreads();       // the zeros are down before any copy lands
-  for (int s = 0; s < DX_STAGES - 1; ++s) queue_next();
-
-  const bool active = warp * 16 < mrows;
-  const int m = warp * 16 + frag_a_row(lane);
-  int a_off = nsd * psd * ROWB + frag_a_koff(lane);
-  if (m < mrows) {
-    const RowPos rp = row_pos(m, per, W);
-    a_off = (rp.s * psd + rp.i * wp + rp.j) * ROWB + frag_a_koff(lane);
-  }
-  const int b_off = prows * ROWB + frag_b_off(lane);
-
-  float acc[NB32 / 8][4];
-#pragma unroll
-  for (int q = 0; q < NB32 / 8; ++q)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
-
-  int slot = 0, par = 0, kc = 0;
-  for (int st = 0; st < nsteps; ++st) {
-    // this step's chunk has landed, and every warp is done with the step
-    // before it, whose buffer the next copies go into
-    cp_async_wait(DX_STAGES - 2);
-    __syncthreads();
-    queue_next();
-    const uint32_t base = sbase + slot * stage_bytes;
-    if (++slot == DX_STAGES) slot = 0;
-    if (active) {
-      const int pa = par >> 1, pb = par & 1;
-      const uint32_t xa = base + a_off + ((2 - pa) * wp + 2 - pb) * ROWB;
-      const uint32_t wb = base + b_off;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-#pragma unroll
-          for (int kk = 0; kk < KC32 * 2; kk += 32) {
-            uint32_t a[4], b0r[4], b1r[4];
-            ldsm4(a, xa - (r * wp + s) * ROWB + kk);
-            ldsm4(b0r, wb + (r * 2 + s) * NB32 * ROWB + kk);
-            ldsm4(b1r, wb + ((r * 2 + s) * NB32 + 16) * ROWB + kk);
-            mma16816(acc[0], a, b0r[0], b0r[1]);
-            mma16816(acc[1], a, b0r[2], b0r[3]);
-            mma16816(acc[2], a, b1r[0], b1r[1]);
-            mma16816(acc[3], a, b1r[2], b1r[3]);
-          }
-        }
-      }
-    }
-    if (++kc == kcn) {
-      kc = 0;
-      ++par;
-    }
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int mo = warp * 16 + g + 8 * h;
-    const RowPos rp = row_pos(mo, per, W);
-    uint32_t v[NB32 / 8];
-#pragma unroll
-    for (int q = 0; q < NB32 / 8; ++q)
-      v[q] = pack_bf16x2(acc[q][2 * h], acc[q][2 * h + 1]);
-    quad_transpose(v, t);
-    if (mo < mrows && b0 + rp.s < B)
-      *reinterpret_cast<uint4*>(
-          dx + ((static_cast<size_t>(b0 + rp.s) * H + row0 + rp.i) * W +
-                rp.j) * Ci + n0 + 8 * t) = make_uint4(v[0], v[1], v[2], v[3]);
-  }
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-inline size_t dx_gather_smem(int W, int nsd, int rt) {
-  return static_cast<size_t>(DX_STAGES) *
-         (dx_plane_rows(W, nsd, rt) + 4 * NB32) * ROWB;
+// The wait that acquires what the peer block released at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-// Launch dx_gather_kernel on `stream`.  wpk is the weight packed by steps
-// ([Ci/32][parity][Co/32][tap (r, s)][32 ci][32 co] bf16).  The caller
-// checks the shape rules: Ci % 32 == 0, Co % 32 == 0, nsd * rt * W <=
-// MROWS_DX, H % rt == 0, nsd == 1 unless rt == H, and the shared memory of
-// dx_gather_smem within the card's limit.  s1, s2, dgamma, dbeta may all be
-// null.  Returns the launch's error.
-template <bool FOLDED>
-cudaError_t launch_dx_gather(const void* dy, const void* wpk, void* dx,
-                             const void* s1, const void* s2, void* dgamma,
-                             void* dbeta, int B, int H, int W, int Ci, int Co,
-                             int nsd, int rt, cudaStream_t stream) {
-  const size_t smem = dx_gather_smem(W, nsd, rt);
-  cudaError_t err = cudaFuncSetAttribute(
-      dx_gather_kernel<FOLDED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int nmb = ((B + nsd - 1) / nsd) * (H / rt);
-  const int naff = dgamma != nullptr ? (Co + DX_THREADS - 1) / DX_THREADS : 0;
-  dx_gather_kernel<FOLDED><<<naff + nmb * (Ci / NB32), DX_THREADS, smem,
-                             stream>>>(
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(wpk), static_cast<__nv_bfloat16*>(dx),
-      static_cast<const float*>(s1), static_cast<const float*>(s2),
-      static_cast<float*>(dgamma), static_cast<float*>(dbeta), B, H, W, Ci,
-      Co, nsd, rt, nmb, naff);
-  return cudaGetLastError();
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
+      "}\n" ::"r"(bar)
+      : "memory");
+}
+
+// Arrive on the barrier at the same offset in block `rank` of the cluster,
+// releasing this thread's earlier writes (to that block's shared memory
+// too) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The shared::cluster address of shared::cta address `addr` in block `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 8 bytes to a block's shared memory, counted (complete_tx) on that block's
+// mbarrier when they land.
+__device__ __forceinline__ void st_async8(uint32_t dst, float a, float b,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes to another block's shared memory, counted (complete_tx) on that
+// block's mbarrier when they land.
+__device__ __forceinline__ void st_async16(uint32_t dst, const uint4& v,
+                                           uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
 }
 
 }  // namespace lgt

@@ -1,11 +1,14 @@
 // K1L: the whole late upsample stage in one launch (ConvTranspose 4x4 / s2
-// SAME, GroupNorm, affine, LeakyReLU, depth-to-space), and K1L backward:
-// the input gradient from the folded cotangent.
+// SAME, GroupNorm, affine, LeakyReLU, depth-to-space), and its whole
+// backward in one launch (LeakyReLU + GroupNorm backward, dgamma / dbeta and
+// the input gradient).
 //
 // The forward replaces levelgan/kernels/upsample_rows.py:_conv_fwd (the
 // Pallas call at :253) together with the XLA pass that follows it in
 // _forward_rows (:382-395: GroupNorm from the kernel's sums, affine,
-// LeakyReLU, unfold); the backward replaces _conv_bwd (:323).
+// LeakyReLU, unfold); the backward replaces _conv_bwd (the Pallas call at
+// :323) together with the XLA pass before it in _make_rows_op's bwd
+// (:453-479, named scope K1L_gn_act_bwd).
 //
 // Forward design.  A block owns rt = 128 / W input rows of one sample and
 // 32 output channels, all four parities: per parity a GEMM with M = 128
@@ -41,6 +44,39 @@
 // TB/s): the bytes.  Unlike the TPU kernel it multiplies no structured
 // zeros: each parity takes only its own 4 taps.
 
+// Backward design.  What bounds it on an H100 at gumbel_64 up3 (B = 64): the
+// output cotangent g and the residual yf in (16.8 MB each), dyf (kept for
+// dw) and dx out (16.8 + 8.4 MB): 58.7 MB, 17.5 us at 3.35 TB/s, against
+// 4.29 GFLOP of dx products (4.3 us at 989 TF/s): the bytes.  So nothing of
+// yf's size goes through device memory in f32, and g and yf are read once.
+// The H / rt blocks of one sample form a cluster (rt rows of the folded
+// plane a block, rt * W <= 128 positions: 8 blocks of 4 rows at up3); the
+// clusters are persistent and walk over samples.  Per sample a block
+// bulk-copies its g rows, its yf rows (one contiguous run each) and the
+// sample's mean / rstd behind an mbarrier, queued under the previous
+// sample's GEMM.  Pass 1 forms xn, the LeakyReLU mask and dout and sums
+// s1 = sum dout and s2 = sum dout * xn per channel in a fixed order (a
+// thread's words -> butterfly over the lanes of one channel chunk -> warps
+// in order); the block pushes its partials into every rank's shared memory
+// by st.async, counted in bytes on that rank's mbarrier, and each rank
+// adds them in rank order: no atomics, so two calls give the same bits.
+// Every block then forms the group means of gamma * s1 and gamma * s2, and
+// pass 2 writes dyf = rstd (dout gamma - m1 - xn m2) in bf16 (where the JAX
+// package rounds it) into a haloed tile in shared memory; its first and
+// last rows go by st.async into the halo rows of ranks r - 1 and r + 1
+// (zeros stay at the sample's edges), dyf goes to device memory 16 bytes a
+// lane, and the block waits for its own halo rows.  Pushing (partials,
+// halo rows) replaces the cluster barriers and the remote reads of a first
+// version (0.081 ms at this shape on an H100 at 700 W, against 0.065-0.069
+// ms now).  The dx GEMM runs
+// from the tile: per parity only its own 4 taps (no 9-shift packed weights
+// with structured zeros), mma.sync with ldmatrix fragments, each warp a 32 x
+// 32 tile, dx out 16 bytes a lane.  The weight (pack_taps_dx, 4 taps x Ci x
+// 32 channels a step) stays resident where all its steps fit (up3: 80 KB)
+// and streams through a cp.async ring otherwise.  Each cluster sums its
+// samples' s1 and s2; the last block to finish (an atomic ticket) adds the
+// clusters' in cluster order into dbeta / dgamma.
+//
 #include <cooperative_groups.h>
 
 #include "stage_common.cuh"
@@ -443,20 +479,622 @@ extern "C" int upsample_rows_stage(const void* x, const void* wpk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1L backward: dyf [B,H,W,4Co] bf16 (the folded pre-norm cotangent, channel
-// block 2a+b = parity (a, b)), wpk (the weight packed by dx steps,
-// [Ci/32][parity][Co/32][tap][32][32] bf16) -> dx [B,H,W,Ci] bf16, by the
-// gather GEMM of stage_common.cuh read straight from the folded layout: no
-// zero-padded copy of dyf and no 9-shift packed weights with structured
-// zeros (the TPU kernel's _pack_w_bwd); each parity multiplies only its own
-// 4 taps.  What bounds it on an H100 at gumbel_64 up3 (B = 64): 4.29 GFLOP
-// against 25 MB of dyf in and dx out, so the bytes.  A block takes nsd whole
-// samples or rt rows of one; the caller checks the shape rules of
-// launch_dx_gather.  Returns cudaGetLastError().
-extern "C" int upsample_rows_bwd(const void* dyf, const void* wpk, void* dx,
-                                 int B, int H, int W, int Ci, int Co, int nsd,
-                                 int rt, void* stream) {
-  return static_cast<int>(lgt::launch_dx_gather<true>(
-      dyf, wpk, dx, nullptr, nullptr, nullptr, nullptr, B, H, W, Ci, Co, nsd,
-      rt, static_cast<cudaStream_t>(stream)));
+// ===========================================================================
+// K1L backward: LeakyReLU + GroupNorm backward and the input gradient in one
+// cluster kernel (the design note is at the top of this file).
+// ===========================================================================
+
+namespace {
+
+constexpr int BWD_MAXW = 8;           // warps of a backward block, at most
+
+using lgt::bulk_copy;
+using lgt::map_rank;
+using lgt::mbar_expect_tx;
+using lgt::mbar_init;
+using lgt::mbar_wait;
+using lgt::mbar_wait_cluster;
+using lgt::st_async16;
+using lgt::st_async8;
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// Warps of a block: one 32-position x 32-input-channel dx tile each.
+__host__ __device__ inline int bwd_warps(int W, int rt, int Ci) {
+  return (rt * W / 32) * (Ci / 32);
+}
+
+// Byte offsets of a backward block's shared memory.  g and yf: the block's
+// rows as stored (2rt output rows; rt folded rows), 8 M Co bytes each; the
+// dyf tile: (rt + 2) x (W + 2) positions of 4Co bf16 plus 16 bytes (so the
+// eight rows an ldmatrix reads start in eight distinct bank groups), zero
+// halo columns, halo rows from the neighbouring ranks; the weight ring:
+// `slots` steps of 4 taps x Ci rows of 32 cotangent channels (ROWB each);
+// then the sums (warp partials; every rank's partials of two samples, as
+// the ranks push them), the sample's mean / rstd (copied with the rows),
+// the group means, and the mbarriers of the rows, the halo rows and the
+// partials of even and odd samples.
+struct BwdLayout {
+  int pitch, wstep, g, yf, tile, wring, red, cpart, stat, mm, bar, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int W, int rt, int Ci, int Co,
+                                                int slots) {
+  BwdLayout l;
+  const int m = rt * W;
+  l.pitch = 8 * Co + 16;
+  l.wstep = 4 * Ci * ROWB;
+  l.g = 0;
+  l.yf = 8 * m * Co;
+  l.tile = 16 * m * Co;
+  l.wring = l.tile + (rt + 2) * (W + 2) * l.pitch;
+  l.red = l.wring + slots * l.wstep;
+  l.cpart = l.red + bwd_warps(W, rt, Ci) * 2 * Co * 4;
+  l.stat = l.cpart + 2 * MAX_CLUSTER * Co * 8;
+  l.mm = l.stat + 2 * Co * 4;
+  l.bar = l.mm + 2 * Co * 4;
+  l.total = l.bar + 48;            // four mbarriers and the ticket
+  return l;
+}
+
+__global__ void __launch_bounds__(BWD_MAXW * 32, 1)
+upsample_rows_bwd_kernel(const __nv_bfloat16* __restrict__ g,
+                         const __nv_bfloat16* __restrict__ yf,
+                         const float* __restrict__ mu,
+                         const float* __restrict__ rstd,
+                         const float* __restrict__ gamma,
+                         const float* __restrict__ beta,
+                         const __nv_bfloat16* __restrict__ wpk,
+                         __nv_bfloat16* __restrict__ dx,
+                         __nv_bfloat16* __restrict__ dyf,
+                         float* __restrict__ part, float* __restrict__ dgamma,
+                         float* __restrict__ dbeta, int* __restrict__ counter,
+                         unsigned long long* __restrict__ probe, int B, int H,
+                         int W, int Ci, int Co, int gs, int rt, int slots,
+                         float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // with a probe, thread 0 of block 0 adds each phase's time to probe[ph]
+  unsigned long long t_last = 0;
+  auto mark = [&](int ph) {
+    if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (ph >= 0) probe[ph] += now - t_last;
+      t_last = now;
+    }
+  };
+  mark(-1);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, nthr = blockDim.x, nw = nthr >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int m_blk = rt * W, wp = W + 2, row0 = rank * rt;
+  const BwdLayout lay = bwd_layout(W, rt, Ci, Co, slots);
+  unsigned char* tile = smem + lay.tile;
+  float* red = reinterpret_cast<float*>(smem + lay.red);     // [nw][2][Co]
+  // [sample parity][rank][Co][s1, s2]
+  const float* inbox = reinterpret_cast<const float*>(smem + lay.cpart);
+  float* stat = reinterpret_cast<float*>(smem + lay.stat);   // [2][Co]
+  float* mm = reinterpret_cast<float*>(smem + lay.mm);       // [2][Co]
+  int* ticket = reinterpret_cast<int*>(smem + lay.bar + 32);
+  const uint32_t sbase = lgt::smem_addr(smem);
+  const uint32_t bar = sbase + lay.bar;          // the rows have landed
+  const uint32_t hbar = bar + 8;                 // the halo rows are in
+  const uint32_t sbar = bar + 16;                // + 8 (k & 1): partials
+  const int nneigh = (rank > 0) + (rank + 1 < csize);
+  const int hbytes = nneigh * W * 8 * Co;        // ... nneigh rows of them
+  const int sbytes = csize * Co * 8;             // ... every rank's
+
+  // this cluster's samples: cid, cid + ncl, ...
+  const int cid = blockIdx.x / csize, ncl = gridDim.x / csize;
+  const int nsamp = cid < B ? (B - 1 - cid) / ncl + 1 : 0;
+  const int kcn = Co / KC32, nsteps = 4 * kcn;
+  const bool resident = slots >= nsteps;
+  const int rbytes = 8 * m_blk * Co;     // the block's g rows, and its yf rows
+
+  {  // zero the tile's halo: the columns stay zero, and so do the rows
+     // outside the sample (the others take the neighbours' rows)
+    const int pw = lay.pitch / 16, rw = wp * pw;   // 16-byte words
+    for (int i = tid; i < 2 * rw + 2 * rt * pw; i += nthr) {
+      int word;
+      if (i < 2 * rw) {
+        word = i < rw ? i : (rt + 1) * rw + i - rw;
+      } else {
+        const int e = i - 2 * rw, side = e / (rt * pw), rest = e % (rt * pw);
+        word = (rest / pw + 1) * rw + (side ? W + 1 : 0) * pw + rest % pw;
+      }
+      reinterpret_cast<uint4*>(tile)[word] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // thread 0 queues the g and yf rows of the cluster's k-th sample (one
+  // contiguous run each) and its mean / rstd
+  auto load_rows = [&](int k) {
+    const size_t b = cid + static_cast<size_t>(k) * ncl;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar, 2 * rbytes + 8 * Co);
+    bulk_copy(sbase + lay.g, g + (b * 2 * H + 2 * row0) * 2 * W * Co, rbytes,
+              bar);
+    bulk_copy(sbase + lay.yf, yf + (b * H + row0) * W * 4 * Co, rbytes, bar);
+    bulk_copy(sbase + lay.stat, mu + b * Co, 4 * Co, bar);
+    bulk_copy(sbase + lay.stat + 4 * Co, rstd + b * Co, 4 * Co, bar);
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    // the halo rows arrive by st.async from the neighbours, counted in
+    // bytes against this thread's expectation, one phase a sample
+    if (nneigh > 0) mbar_init(hbar, 1);
+    // every rank's partials arrive by st.async too, those of even and odd
+    // samples on two barriers
+    mbar_init(sbar, 1);
+    mbar_init(sbar + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (nsamp > 0) {
+      load_rows(0);
+      if (nneigh > 0) mbar_expect_tx(hbar, hbytes);
+      mbar_expect_tx(sbar, sbytes);
+      if (nsamp > 1) mbar_expect_tx(sbar + 8, sbytes);
+    }
+  }
+
+  // weight step st = parity * kcn + kc: the parity's 4 taps x Ci rows of 32
+  // cotangent channels, from pack_taps_dx's [Ci/32][parity][kc][tap][32][32]
+  auto copy_step = [&](int st, int slot) {
+    const int p = st / kcn, kc = st - p * kcn;
+    const uint32_t dst = sbase + lay.wring + slot * lay.wstep;
+    for (int idx = tid; idx < 16 * Ci; idx += nthr) {
+      const int q = idx & 3, n = (idx >> 2) & 31, tap = (idx >> 7) & 3,
+                nb = idx >> 9;
+      lgt::cp_async16(
+          dst + (tap * Ci + nb * 32 + n) * ROWB + q * 16,
+          wpk + ((((static_cast<size_t>(nb) * 4 + p) * kcn + kc) * 4 + tap) *
+                     32 + n) * 32 + q * 8);
+    }
+  };
+  // where the steps do not all fit, they stream through the ring for every
+  // sample, one cp.async group a step
+  const int wtotal = nsamp * nsteps;
+  int wq = 0;
+  auto queue_step = [&]() {
+    if (wq < wtotal) copy_step(wq % nsteps, wq % slots);
+    lgt::cp_async_commit();   // an empty group keeps the wait's count uniform
+    ++wq;
+  };
+  if (resident) {
+    if (nsamp > 0)
+      for (int st = 0; st < nsteps; ++st) copy_step(st, st);
+    lgt::cp_async_commit();
+  } else {
+    for (int s = 0; s < slots - 1; ++s) queue_step();
+  }
+
+  // the per-element passes: a thread takes 8 channels (chunk cq) of one
+  // parity pp at positions pos0, pos0 + pstep, ...: 16-byte words of the
+  // block's folded rows, read from the staged g and yf rows (the thread
+  // count is a multiple of Co / 2)
+  const int cqn = Co / 8, cq = tid % cqn, pp = (tid / cqn) & 3;
+  const int pos0 = tid / (4 * cqn), pstep = nthr / (4 * cqn);
+  const int lw = __ffs(W) - 1;
+  const int choff = (pp * Co + cq * 8) * 2;        // bytes into a position
+  float gm[8], bt[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    gm[e] = gamma[cq * 8 + e];
+    bt[e] = beta[cq * 8 + e];
+  }
+  const float cnt = 4.f * gs * H * W;
+  const float gam_c = tid < Co ? gamma[tid] : 0.f;   // the sums' channel
+  auto yf_word = [&](int pos) {
+    return *reinterpret_cast<const uint4*>(smem + lay.yf + pos * 8 * Co +
+                                           choff);
+  };
+  // folded (il, j, parity (a, b)) -> g at (2 il + a, 2 j + b) of the rows
+  auto g_word = [&](int pos) {
+    const int il = pos >> lw, j = pos & (W - 1);
+    return *reinterpret_cast<const uint4*>(
+        smem + lay.g +
+        (((il * 4 * W + (pp >> 1) * 2 * W + 2 * j + (pp & 1)) * Co + cq * 8)
+         << 1));
+  };
+  constexpr int UNR = 4;      // words a thread loads before it computes
+                              // (twice as many in pass 1)
+
+  // the dx GEMM: warp (wm, wn) owns positions wm * 32 .. + 32 and input
+  // channels wn * 32 .. + 32; row m reads the tile at (il + 2 - a - r,
+  // j + 2 - b - s) for parity (a, b), tap (r, s)
+  const int wms = m_blk / 32, wm = warp % wms, wn = warp / wms;
+  uint32_t a_base[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int m = wm * 32 + mi * 16 + lgt::frag_a_row(lane);
+    const int il = m / W, j = m - il * W;
+    a_base[mi] = sbase + lay.tile + ((il + 2) * wp + j + 2) * lay.pitch +
+                 lgt::frag_a_koff(lane);
+  }
+  const uint32_t b_base =
+      sbase + lay.wring + wn * 32 * ROWB + lgt::frag_b_off(lane);
+  // the zeros are down and every block's barriers are set up before any
+  // block pushes into another
+  cluster.sync();
+  mark(0);
+  int wt = 0;                 // weight steps consumed
+  float bs1 = 0.f, bs2 = 0.f; // thread c < Co: its channel's batch sums
+  for (int k = 0; k < nsamp; ++k) {
+    const int b = cid + k * ncl;
+    mbar_wait(bar, k & 1);    // this sample's rows have landed
+    mark(1);
+    float mu8[8], rs8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      mu8[e] = stat[cq * 8 + e];
+      rs8[e] = stat[Co + cq * 8 + e];
+    }
+
+    // ---- pass 1: s1 = sum dout, s2 = sum dout * xn per channel, parities
+    // collapsed; fixed order: a thread's words in order -> the lanes of one
+    // chunk by butterfly -> warps 0..nw-1 -> cluster ranks 0..n-1 --------
+    float s1[8], s2[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.f;
+    for (int pos = pos0; pos < m_blk; pos += 2 * UNR * pstep) {
+      uint4 yw[2 * UNR], gw[2 * UNR];
+#pragma unroll
+      for (int u = 0; u < 2 * UNR; ++u)
+        if (pos + u * pstep < m_blk) {
+          yw[u] = yf_word(pos + u * pstep);
+          gw[u] = g_word(pos + u * pstep);
+        }
+#pragma unroll
+      for (int u = 0; u < 2 * UNR; ++u)
+        if (pos + u * pstep < m_blk) {
+          float yv[8], gv[8];
+          unpack8(yw[u], yv);
+          unpack8(gw[u], gv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float xn = (yv[e] - mu8[e]) * rs8[e];
+            const float d = xn * gm[e] + bt[e] >= 0.f ? gv[e] : slope * gv[e];
+            s1[e] += d;
+            s2[e] += d * xn;
+          }
+        }
+    }
+    for (int o = cqn; o < 32; o <<= 1)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], o);
+        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], o);
+      }
+    mark(2);
+    if (lane < cqn)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        red[(warp * 2) * Co + lane * 8 + e] = s1[e];
+        red[(warp * 2 + 1) * Co + lane * 8 + e] = s2[e];
+      }
+    __syncthreads();
+    // the block's partials to every rank's inbox (its own too), slot
+    // [k & 1][rank]: a rank reads sample k's before it pushes sample
+    // k + 1's, the last anyone needs before pushing sample k + 2's.  That
+    // push also tells each neighbour this block's GEMM of the previous
+    // sample is done, before the neighbour pushes halo rows into the tile
+    const int par = k & 1;
+    if (tid < Co) {
+      const int c = tid;
+      float a1 = 0.f, a2 = 0.f;
+      for (int w = 0; w < nw; ++w) {
+        a1 += red[(w * 2) * Co + c];
+        a2 += red[(w * 2 + 1) * Co + c];
+      }
+      const uint32_t slot =
+          sbase + lay.cpart + ((par * MAX_CLUSTER + rank) * Co + c) * 8;
+      for (int r = 0; r < csize; ++r)
+        st_async8(map_rank(slot, r), a1, a2, map_rank(sbar + 8 * par, r));
+    }
+    mark(3);
+    mbar_wait_cluster(sbar + 8 * par, (k >> 1) & 1);   // every rank's are in
+    if (tid == 0 && k + 2 < nsamp) mbar_expect_tx(sbar + 8 * par, sbytes);
+    mark(4);
+    if (tid < Co) {
+      // the sample's sums in rank order, then the group means of gamma * s:
+      // the group's channels in index order, lanes of this warp (a group
+      // divides 32 channels)
+      const int c = tid;
+      float t1 = 0.f, t2 = 0.f;
+      for (int r = 0; r < csize; ++r) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            inbox + ((par * MAX_CLUSTER + r) * Co + c) * 2);
+        t1 += v.x;
+        t2 += v.y;
+      }
+      bs1 += t1;              // this cluster's sums over its samples
+      bs2 += t2;
+      const float w1 = t1 * gam_c, w2 = t2 * gam_c;
+      const int g0 = lane / gs * gs;
+      float m1 = 0.f, m2 = 0.f;
+      for (int jj = 0; jj < gs; ++jj) {
+        m1 += __shfl_sync(0xffffffffu, w1, g0 + jj);
+        m2 += __shfl_sync(0xffffffffu, w2, g0 + jj);
+      }
+      mm[c] = m1 / cnt;
+      mm[Co + c] = m2 / cnt;
+    }
+    __syncthreads();
+    mark(5);
+
+    // ---- pass 2: dyf = rstd (dout gamma - m1 - xn m2), in bf16 to the
+    // tile's interior (the GEMM's A) --------------------------------------
+    // rstd (dout gamma - m1 - xn m2) = (rstd gamma or rstd gamma slope) g
+    // + (-rstd m2) xn + (-rstd m1), by the sign of xn gamma + beta
+    float ap[8], an[8], bx[8], cx[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      ap[e] = rs8[e] * gm[e];
+      an[e] = ap[e] * slope;
+      bx[e] = -rs8[e] * mm[Co + cq * 8 + e];
+      cx[e] = -rs8[e] * mm[cq * 8 + e];
+    }
+    for (int pos = pos0; pos < m_blk; pos += UNR * pstep) {
+      uint4 yw[UNR], gw[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u)
+        if (pos + u * pstep < m_blk) {
+          yw[u] = yf_word(pos + u * pstep);
+          gw[u] = g_word(pos + u * pstep);
+        }
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int ps = pos + u * pstep;
+        if (ps < m_blk) {
+          float yv[8], gv[8];
+          unpack8(yw[u], yv);
+          unpack8(gw[u], gv);
+          uint32_t out[4];
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            float o[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = e + h;
+              const float xn = (yv[i] - mu8[i]) * rs8[i];
+              const float a = xn * gm[i] + bt[i] >= 0.f ? ap[i] : an[i];
+              o[h] = a * gv[i] + (bx[i] * xn + cx[i]);
+            }
+            out[e >> 1] = lgt::pack_bf16x2(o[0], o[1]);
+          }
+          *reinterpret_cast<uint4*>(tile + ((ps >> lw) + 1) * wp * lay.pitch +
+                                    ((ps & (W - 1)) + 1) * lay.pitch +
+                                    choff) =
+              make_uint4(out[0], out[1], out[2], out[3]);
+        }
+      }
+    }
+    __syncthreads();          // g and yf are read, the interior is written
+    mark(6);
+
+    // the first interior row to rank r - 1's halo row rt + 1, the last to
+    // rank r + 1's halo row 0 (each finished its GEMM of the previous
+    // sample before it pushed this sample's partials), by st.async, which
+    // counts the bytes on that block's halo mbarrier; then dyf from the
+    // tile to device memory (for dw), 16 bytes a lane
+    const int rwords = W * Co / 2;                 // 16-byte words a row
+    for (int idx = tid; idx < 2 * rwords; idx += nthr) {
+      const int side = idx >= rwords, e = idx - side * rwords;
+      if (side ? rank + 1 == csize : rank == 0) continue;
+      const int off = ((e / (Co / 2)) + 1) * lay.pitch + (e % (Co / 2)) * 16;
+      const int peer = side ? rank + 1 : rank - 1;
+      st_async16(map_rank(sbase + lay.tile +
+                              (side ? 0 : rt + 1) * wp * lay.pitch + off,
+                          peer),
+                 *reinterpret_cast<const uint4*>(
+                     tile + (side ? rt : 1) * wp * lay.pitch + off),
+                 map_rank(hbar, peer));
+    }
+    mark(7);
+    __nv_bfloat16* dyb = dyf + (static_cast<size_t>(b) * H + row0) * W * 4 * Co;
+    for (int idx = tid; idx < rt * rwords; idx += nthr) {
+      const int pos = idx / (Co / 2), q = idx - pos * (Co / 2);
+      *reinterpret_cast<uint4*>(dyb + static_cast<size_t>(idx) * 8) =
+          *reinterpret_cast<const uint4*>(
+              tile + ((pos >> lw) + 1) * wp * lay.pitch +
+              ((pos & (W - 1)) + 1) * lay.pitch + q * 16);
+    }
+    mark(8);
+    if (tid == 0 && k + 1 < nsamp) load_rows(k + 1);   // g and yf are free
+    if (nneigh > 0) {
+      mbar_wait_cluster(hbar, k & 1);   // this tile's halo rows are in
+      if (tid == 0 && k + 1 < nsamp) mbar_expect_tx(hbar, hbytes);
+    }
+    if (resident && k == 0) lgt::cp_async_wait(0);    // the weights are in
+    __syncthreads();
+    mark(9);
+
+    // ---- dx: per (parity, 32-channel chunk) step, the parity's 4 taps ----
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][q][e] = 0.f;
+    for (int st = 0; st < nsteps; ++st, ++wt) {
+      if (!resident) {
+        // this step's weights have landed, and every warp is done with the
+        // step before it, whose slot the next copies go into
+        lgt::cp_async_wait(slots - 2);
+        __syncthreads();
+        queue_step();
+      }
+      const int p = st / kcn, kc = st - p * kcn, pa = p >> 1, pb = p & 1;
+      const uint32_t wsl = b_base + (resident ? st : wt % slots) * lay.wstep;
+      const int coff = (p * Co + kc * KC32) * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int aoff = coff - ((pa + r) * wp + pb + s) * lay.pitch;
+          const uint32_t wb = wsl + (2 * r + s) * Ci * ROWB;
+#pragma unroll
+          for (int kk = 0; kk < KC32 * 2; kk += 32) {
+            uint32_t a0[4], a1[4], b0[4], b1[4];
+            lgt::ldsm4(a0, a_base[0] + aoff + kk);
+            lgt::ldsm4(a1, a_base[1] + aoff + kk);
+            lgt::ldsm4(b0, wb + kk);
+            lgt::ldsm4(b1, wb + 16 * ROWB + kk);
+            lgt::mma16816(acc[0][0], a0, b0[0], b0[1]);
+            lgt::mma16816(acc[0][1], a0, b0[2], b0[3]);
+            lgt::mma16816(acc[0][2], a0, b1[0], b1[1]);
+            lgt::mma16816(acc[0][3], a0, b1[2], b1[3]);
+            lgt::mma16816(acc[1][0], a1, b0[0], b0[1]);
+            lgt::mma16816(acc[1][1], a1, b0[2], b0[3]);
+            lgt::mma16816(acc[1][2], a1, b1[0], b1[1]);
+            lgt::mma16816(acc[1][3], a1, b1[2], b1[3]);
+          }
+        }
+      }
+    }
+    mark(10);
+    // 16 bytes a lane: the quad exchange gives lane t the 8 channels of n8
+    // tile t
+    const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm * 32 + mi * 16 + g8 + 8 * h;
+        const int il = m / W, j = m - il * W;
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          v[q] = lgt::pack_bf16x2(acc[mi][q][2 * h], acc[mi][q][2 * h + 1]);
+        lgt::quad_transpose(v, t4);
+        *reinterpret_cast<uint4*>(
+            dx + ((static_cast<size_t>(b) * H + row0 + il) * W + j) * Ci +
+            wn * 32 + 8 * t4) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    mark(11);
+  }
+  // no copy in flight at exit (a block reads no other block's shared
+  // memory, and it waited for everything pushed into its own)
+  lgt::cp_async_wait(0);
+
+  // ---- dbeta = sum s1, dgamma = sum s2 over the batch: each cluster's
+  // sums over its samples in order (rank 0's), then the last block to
+  // finish (its ticket) adds the clusters' in cluster order; it leaves the
+  // counter at zero -------------------------------------------------------
+  if (rank == 0 && tid < Co) {
+    part[(cid * 2) * Co + tid] = bs1;
+    part[(cid * 2 + 1) * Co + tid] = bs2;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  if (*ticket == static_cast<int>(gridDim.x) - 1) {
+    __threadfence();
+    for (int i = tid; i < 2 * Co; i += nthr) {
+      float a = 0.f;
+#pragma unroll 8
+      for (int cl = 0; cl < ncl; ++cl)
+        a += __ldcg(part + static_cast<size_t>(cl) * 2 * Co + i);
+      (i < Co ? dbeta : dgamma)[i % Co] = a;
+    }
+    if (tid == 0) *counter = 0;
+  }
+  mark(12);
+}
+
+cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                       int csize, int nclusters, int W, int rt, int Ci, int Co,
+                       int slots, cudaStream_t stream) {
+  const size_t smem = bwd_layout(W, rt, Ci, Co, slots).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      upsample_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(nclusters * csize);
+  cfg.blockDim = dim3(32 * bwd_warps(W, rt, Ci));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Dynamic shared memory of one backward block (bwd_layout).
+extern "C" size_t upsample_rows_bwd_smem(int W, int rt, int Ci, int Co,
+                                         int slots) {
+  return static_cast<size_t>(bwd_layout(W, rt, Ci, Co, slots).total);
+}
+
+// How many backward clusters of H / rt blocks the card holds at once: into
+// *out.  Returns the query's error.
+extern "C" int upsample_rows_bwd_max_clusters(int H, int W, int rt, int Ci,
+                                              int Co, int slots, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      bwd_config(cfg, attr, H / rt, 1, W, rt, Ci, Co, slots, nullptr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(out, upsample_rows_bwd_kernel, &cfg);
+  return err == cudaSuccess ? 0 : failed(err);
+}
+
+// K1L backward.  g [B,2H,2W,Co] bf16 (the output cotangent), yf [B,H,W,4Co]
+// bf16 and mu / rstd [B,Co] f32 (the forward's residuals; these four start
+// on 16 bytes, for the bulk copies), gamma / beta [Co] f32, wpk
+// (pack_taps_dx: [Ci/32][parity][Co/32][tap][32][32] bf16) -> dx [B,H,W,Ci]
+// bf16, dyf [B,H,W,4Co] bf16 (the pre-norm cotangent, rounded where
+// _make_rows_op rounds it), part [nclusters][2][Co] f32 (each cluster's
+// sum dout, sum dout * xn over its samples), dgamma / dbeta [Co] f32.  counter: one int, zero before the
+// launch and after it.  probe: null, or BWD_PHASES zeroed int64 that the
+// first block's thread 0 adds its phases' nanoseconds to.  The grid is
+// `nclusters` clusters of H / rt blocks of 32 * bwd_warps threads.  The
+// caller checks the shape rules (kernels/upsample_rows.py:bwd_tile): W >=
+// 16 dividing 128, rt * W a multiple of 32 and at most 128, H % rt == 0,
+// H / rt <= 8, Ci % 32 == 0, Co a power of two in 32..256, gs dividing 32,
+// bwd_warps <= 8 with 32 * bwd_warps a multiple of Co, slots >= 2 (at most
+// 3 unless it holds every step) and the shared memory within the card's
+// limit.  Returns the launch's error.
+extern "C" int upsample_rows_bwd(const void* g, const void* yf, const void* mu,
+                                 const void* rstd, const void* gamma,
+                                 const void* beta, const void* wpk, void* dx,
+                                 void* dyf, void* part, void* dgamma,
+                                 void* dbeta, void* counter, void* probe,
+                                 int B, int H, int W, int Ci, int Co, int gs,
+                                 int rt, int slots, int nclusters, float slope,
+                                 void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = bwd_config(cfg, attr, H / rt, nclusters, W, rt, Ci, Co,
+                               slots, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return failed(err);
+  err = cudaLaunchKernelEx(
+      &cfg, upsample_rows_bwd_kernel, static_cast<const __nv_bfloat16*>(g),
+      static_cast<const __nv_bfloat16*>(yf), static_cast<const float*>(mu),
+      static_cast<const float*>(rstd), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(wpk),
+      static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(dyf),
+      static_cast<float*>(part), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<int*>(counter),
+      static_cast<unsigned long long*>(probe), B, H, W, Ci, Co, gs, rt, slots,
+      slope);
+  if (err != cudaSuccess) return failed(err);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,20 +32,34 @@ per-(sample, channel) mean / rstd that the backward reads.  What bounds it
 at gumbel_64 up3 (B = 1024): 134 MB of x in and 268 MB of y out (0.120 ms
 at 3.35 TB/s) against 68.7 GFLOP (0.069 ms): the bytes.
 
-Backward (``UpsampleRowsFn``, the custom VJP of ``_make_rows_op``): the
-LeakyReLU + GroupNorm backward in plain PyTorch in folded layout, from the
-saved yf and the per-(sample, channel) mean / rstd (XLA in the JAX
-package); then the kernel ``upsample_rows_bwd`` for dx from the folded
-cotangent (the function of ``_conv_bwd``, read from the folded layout by
-the same gather GEMM as K1 bwd's dx launch: ``dx_tile`` picks its tile,
-the weight is packed by steps once per version; without the TPU's 9-shift
-packed weights and their structured zeros); then ``weight_grad_folded``
-with torch matmuls.  At gumbel_64 up3 (B = 64) dx is 4.29 GFLOP against
-16.8 MB of dyf in and 8.4 MB of dx out: the bytes bound it (~7.5 us).
+Backward (``upsample_rows_bwd``, one launch in ``UpsampleRowsFn``, the
+custom VJP of ``_make_rows_op``): replaces ``_conv_bwd`` together with the
+XLA pass before it (the LeakyReLU + GroupNorm backward in folded layout).
+The H / rt blocks of one sample form a cluster (``bwd_tile``: rt folded rows
+a block, 8 blocks of 4 rows at gumbel_64 up3), persistent over samples
+(``max_bwd_clusters``).  A block bulk-copies its rows of the output
+cotangent g and of the residual yf and the sample's mean / rstd, sums
+dout and dout * xn per channel in a fixed order (a thread's words, lanes,
+warps) and pushes its partials to every rank (``st.async`` into
+distributed shared memory, counted on an mbarrier); each rank adds them in
+rank order and forms the group means.  It writes dyf in bf16 to a haloed
+tile in shared memory, pushes its first and last rows into the
+neighbours' halo rows, copies dyf to device memory (``weight_grad_folded``
+reads it for dw, with torch matmuls), waits for its own halo rows and runs
+the dx GEMM from the tile (each parity its own 4 taps, ``mma.sync`` +
+``ldmatrix``; the weight packed by ``pack_taps_dx`` once per version,
+resident where it fits, else streamed through a ring).  Each cluster sums
+its samples' s1 / s2, and the last block to finish adds the clusters' into
+dbeta / dgamma.  Only that ticket is taken atomically: every sum runs in
+a fixed order, so two calls give the same bits.  At gumbel_64 up3
+(B = 64) g and yf in and dyf and dx out are 58.7 MB (17.5 us at
+3.35 TB/s) against 4.29 GFLOP (4.3 us): the bytes bound it.  ``probe``
+times the first block's phases (``BWD_PHASES``).
 
 On a CPU tensor the wrappers run the plain versions
 (``upsample_block_rows_plain``: ``conv_rows_plain``, ``rows_stats``,
-``normalize``; ``conv_rows_bwd_plain``); on a CUDA tensor they launch the
+``normalize``; ``upsample_rows_bwd_plain``: ``gn_act_bwd_folded``, then
+``conv_rows_bwd_plain``); on a CUDA tensor they launch the
 kernel or raise.
 """
 
@@ -56,8 +70,7 @@ import ctypes
 import torch
 
 from levelgan_torch.kernels import build
-from levelgan_torch.kernels.upsample_block import (KCB, NB_DX, ROW_BYTES,
-                                                   SMEM_MAX, dx_fits, dx_tile,
+from levelgan_torch.kernels.upsample_block import (ROW_BYTES, SMEM_MAX,
                                                    pack_taps_chunks,
                                                    pack_taps_dx, packed)
 from levelgan_torch.ops.blocks import (conv_transpose_2x,
@@ -72,6 +85,12 @@ MAX_STAGES = 3        # input chunks in flight, at most
 TAP_ROWS = 16 * NC    # staged rows of one chunk of taps (csrc: TAP_ROWS)
 YS_BYTES = 4 * MROWS * NC * 2     # a block's bf16 output tile (csrc)
 SUMS_BYTES = (8 * 2 + 4 + 2) * NC * 4   # the sums of a block (csrc: TAIL)
+BWD_MAX_WARPS = 8     # warps of a backward block, at most (csrc: BWD_MAXW)
+BWD_MAX_RING = 3      # a streaming weight ring's slots, at most
+# what the backward's ``probe`` sums, per phase over its first block's samples
+BWD_PHASES = ("set-up", "rows wait", "pass 1", "partials push",
+              "partials wait", "sums", "pass 2", "halo push", "dyf out",
+              "halo wait", "dx GEMM", "dx stores", "exit")
 EPS = 1e-5
 SHIFTS = tuple((u, v) for u in (0, 1, 2) for v in (0, 1, 2))
 
@@ -125,8 +144,14 @@ def _lib():
         smem.argtypes = [i32] * 3
         smem.restype = ctypes.c_size_t
         bwd = lib.upsample_rows_bwd
-        bwd.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+        bwd.argtypes = [ptr] * 14 + [i32] * 9 + [f32, ptr]
         bwd.restype = i32
+        occ = lib.upsample_rows_bwd_max_clusters
+        occ.argtypes = [i32] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        occ.restype = i32
+        smem = lib.upsample_rows_bwd_smem
+        smem.argtypes = [i32] * 5
+        smem.restype = ctypes.c_size_t
     return lib
 
 
@@ -200,38 +225,6 @@ def max_clusters(device, csize: int, w: int, ci: int, stages: int) -> int:
     return _occupancy[key]
 
 
-def upsample_rows_bwd(dyf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K1L bwd: folded cotangent dyf [B, H, W, 4Co] -> dx [B, H, W, Ci]."""
-    if dyf.device.type == "cpu":
-        return conv_rows_bwd_plain(dyf, w)
-    if dyf.device.type != "cuda":
-        raise ValueError(f"K1L bwd runs on CUDA tensors, got {dyf.device}")
-    b, h, ww, c4 = dyf.shape
-    co, ci = c4 // 4, w.shape[2]
-    if dyf.dtype != torch.bfloat16 or not dyf.is_contiguous():
-        raise ValueError("K1L bwd takes a contiguous bf16 dyf")
-    if tuple(w.shape) != (4, 4, ci, co) or w.dtype != torch.float32 \
-            or w.device != dyf.device:
-        raise ValueError(f"K1L bwd weight must be f32 (4, 4, Ci, {co}) on "
-                         f"{dyf.device}, got {tuple(w.shape)} {w.dtype}")
-    if c4 % 4 or not dx_fits(h, ww, ci, co):
-        raise ValueError(
-            f"K1L bwd shape rule violated: ci={ci} (multiple of {NB_DX}), "
-            f"co={co} (multiple of {KCB}), H={h}, W={ww} (dx tiling rule)")
-    sms = torch.cuda.get_device_properties(dyf.device).multi_processor_count
-    nsd, rt = dx_tile(b, h, ww, ci, co, sms)
-    wpk = packed(w, pack_taps_dx)
-    dx = torch.empty((b, h, ww, ci), dtype=torch.bfloat16, device=dyf.device)
-    with torch.cuda.device(dyf.device):
-        err = _lib().upsample_rows_bwd(
-            build.ptr(dyf), build.ptr(wpk), build.ptr(dx), b, h, ww, ci, co,
-            nsd, rt, build.stream_ptr(dyf.device))
-    build.check(err, "upsample_rows_bwd")
-    global bwd_launches
-    bwd_launches += 1
-    return dx
-
-
 def _group_shape(co: int, group_size: int) -> tuple[int, int]:
     groups = max(1, co // group_size)
     if co % groups:
@@ -286,7 +279,7 @@ def upsample_block_rows(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     ``w`` HWIO [4, 4, Ci, Co] f32, ``gamma``/``beta`` [Co] f32.  With
     ``residuals`` returns ``(y, yf, mu, rstd)``: the folded pre-norm conv
     output [B, H, W, 4Co] in x's dtype and the per-(sample, channel)
-    GroupNorm mean and rstd [B, Co] f32 that ``gn_act_bwd_folded`` reads.
+    GroupNorm mean and rstd [B, Co] f32 that the backward reads.
     """
     if x.device.type == "cpu":
         return upsample_block_rows_plain(x, w, gamma, beta, slope=slope,
@@ -376,10 +369,171 @@ def gn_act_bwd_folded(g, yf, mu, rstd, gamma, beta, *, slope: float = 0.2,
     return dyf.to(yf.dtype).contiguous(), s2.sum(0), s1.sum(0)
 
 
+def upsample_rows_bwd_plain(g, yf, mu, rstd, gamma, beta, w, *,
+                            slope: float = 0.2, group_size: int = 16):
+    """The backward kernel's function in plain PyTorch:
+    ``gn_act_bwd_folded``, then ``conv_rows_bwd_plain`` on its dyf:
+    (dx, dyf, dgamma, dbeta)."""
+    dyf, dgamma, dbeta = gn_act_bwd_folded(g, yf, mu, rstd, gamma, beta,
+                                           slope=slope, group_size=group_size)
+    return conv_rows_bwd_plain(dyf, w), dyf, dgamma, dbeta
+
+
+def bwd_warps(w: int, rt: int, ci: int) -> int:
+    """Warps of a backward block: one 32 positions x 32 input channels dx
+    tile each (csrc: ``bwd_warps``)."""
+    return (rt * w // 32) * (ci // 32)
+
+
+def bwd_smem(w: int, rt: int, ci: int, co: int, slots: int) -> int:
+    """Dynamic shared memory of one backward block (csrc: ``bwd_layout``):
+    the block's g rows and yf rows (8 rt W Co bytes each), the dyf tile of
+    (rt + 2) x (W + 2) positions of 4Co bf16 + 16 bytes, ``slots`` weight
+    steps of 4 taps x Ci rows, the sums (every rank's partials of two
+    samples), the sample's mean / rstd and group means, and the
+    mbarriers."""
+    m = rt * w
+    return (16 * m * co + (rt + 2) * (w + 2) * (8 * co + 16)
+            + slots * 4 * ci * ROW_BYTES
+            + (2 * bwd_warps(w, rt, ci) + 4 * MAX_CLUSTER + 4) * co * 4 + 48)
+
+
+def bwd_tile(h: int, w: int, ci: int, co: int,
+             group_size: int) -> tuple[int, int]:
+    """(rt, weight slots) of the backward kernel at an input shape.
+
+    A block takes rt folded rows (rt * W positions, a multiple of 32 and at
+    most 128) with one warp per 32 positions x 32 input channels (at most
+    8 warps, and a multiple of Co threads: a thread keeps one 8-channel
+    chunk of one parity in the per-element passes, and one channel's sums),
+    so a cluster has H / rt blocks, at most 8; the largest rt whose block
+    fits the shared memory wins.  The weight's 4 Co / 32 steps stay
+    resident where they fit beside the rest (slots = steps), else they
+    stream through a ring of 3 or 2 slots."""
+    gs = _group_shape(co, group_size)[1]
+    if (w < 16 or MROWS % w or ci % KC or co < NC or co > 8 * NC
+            or co & (co - 1) or NC % gs):
+        raise ValueError(
+            f"K1L bwd shape rule violated: W={w} (divides {MROWS}, >= 16), "
+            f"ci={ci} (multiple of {KC}), co={co} (a power of two, "
+            f"{NC}..{8 * NC}), group size {gs} (divides {NC})")
+    steps = 4 * co // KC
+    for rt in range(min(h, MROWS // w), 0, -1):
+        nw = bwd_warps(w, rt, ci)
+        if (h % rt or h // rt > MAX_CLUSTER or rt * w % 32
+                or nw > BWD_MAX_WARPS or 32 * nw % co):
+            continue
+        for slots in (steps, *range(min(BWD_MAX_RING, steps - 1), 1, -1)):
+            if bwd_smem(w, rt, ci, co, slots) <= SMEM_MAX:
+                return rt, slots
+    raise ValueError(
+        f"K1L bwd at H={h}, W={w}, ci={ci}, co={co}: no row tile rt (H % rt "
+        f"== 0, H / rt <= {MAX_CLUSTER}, rt * W a multiple of 32, at most "
+        f"{BWD_MAX_WARPS} warps, 32 * warps a multiple of Co) whose block "
+        f"fits {SMEM_MAX} bytes of shared memory")
+
+
+def max_bwd_clusters(device, h: int, w: int, rt: int, ci: int, co: int,
+                     slots: int) -> int:
+    """How many backward clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per shape."""
+    key = ("bwd", device, h, w, rt, ci, co, slots)
+    if key not in _occupancy:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _lib().upsample_rows_bwd_max_clusters(
+                h, w, rt, ci, co, slots, ctypes.byref(out))
+        build.check(err, "upsample_rows_bwd_max_clusters")
+        if out.value < 1:
+            raise RuntimeError(
+                f"K1L bwd: no cluster of {h // rt} blocks with "
+                f"{bwd_smem(w, rt, ci, co, slots)} bytes of shared memory "
+                "each fits the card")
+        _occupancy[key] = out.value
+    return _occupancy[key]
+
+
+_tickets: dict = {}
+
+
+def _ticket(device) -> torch.Tensor:
+    """The backward kernel's counter of finished blocks on ``device``: zero
+    before every launch; the last block of a launch sets it back to zero."""
+    if device not in _tickets:
+        _tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[device]
+
+
+def upsample_rows_bwd(g: torch.Tensor, yf: torch.Tensor, mu: torch.Tensor,
+                      rstd: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, w: torch.Tensor, *,
+                      slope: float = 0.2, group_size: int = 16,
+                      probe: torch.Tensor | None = None):
+    """K1L bwd: the output cotangent g [B, 2H, 2W, Co] and the forward's
+    residuals (yf [B, H, W, 4Co] bf16, mu / rstd [B, Co] f32, each starting
+    on 16 bytes) -> (dx [B, H, W, Ci],
+    dyf [B, H, W, 4Co], dgamma [Co], dbeta [Co]); dx and dyf in yf's dtype
+    (bf16 on the card), dgamma / dbeta f32.  A g that is not contiguous is
+    copied first.  ``probe``, a zeroed int64 tensor of len(BWD_PHASES) on
+    the card, gets the nanoseconds the first block spent in each phase."""
+    if g.device.type == "cpu":
+        return upsample_rows_bwd_plain(g, yf, mu, rstd, gamma, beta, w,
+                                       slope=slope, group_size=group_size)
+    if g.device.type != "cuda":
+        raise ValueError(f"K1L bwd runs on CUDA tensors, got {g.device}")
+    b, h, ww, c4 = yf.shape
+    co, ci = c4 // 4, w.shape[2]
+    dev = g.device
+    if (yf.dtype != torch.bfloat16 or not yf.is_contiguous()
+            or yf.device != dev or c4 % 4 or b < 1 or yf.data_ptr() % 16):
+        raise ValueError("K1L bwd takes a contiguous bf16 yf [B >= 1, H, W, "
+                         "4Co] on g's device")
+    if g.dtype != torch.bfloat16 or tuple(g.shape) != (b, 2 * h, 2 * ww, co):
+        raise ValueError(f"K1L bwd takes a bf16 g {(b, 2 * h, 2 * ww, co)}, "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    for name, t, shape in (("mu", mu, (b, co)), ("rstd", rstd, (b, co)),
+                           ("gamma", gamma, (co,)), ("beta", beta, (co,)),
+                           ("w", w, (4, 4, ci, co))):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(f"K1L bwd {name} must be f32 {shape} on {dev}")
+    if probe is not None and (
+            probe.dtype != torch.int64 or probe.device != dev
+            or not probe.is_contiguous() or probe.numel() < len(BWD_PHASES)):
+        raise ValueError(f"K1L bwd probe must be a contiguous int64 tensor of "
+                         f"at least {len(BWD_PHASES)} on {dev}")
+    rt, slots = bwd_tile(h, ww, ci, co, group_size)
+    ncl = min(b, max_bwd_clusters(dev, h, ww, rt, ci, co, slots))
+    g, mu, rstd = g.contiguous(), mu.contiguous(), rstd.contiguous()
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    if g.data_ptr() % 16 or mu.data_ptr() % 16 or rstd.data_ptr() % 16:
+        raise ValueError("K1L bwd copies g, mu and rstd in bulk: they must "
+                         "start on 16 bytes")
+    wpk = packed(w, pack_taps_dx)
+    dx = torch.empty((b, h, ww, ci), dtype=torch.bfloat16, device=dev)
+    dyf = torch.empty_like(yf)
+    part = torch.empty((ncl, 2, co), dtype=torch.float32, device=dev)
+    dgb = torch.empty((2, co), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().upsample_rows_bwd(
+            build.ptr(g), build.ptr(yf), build.ptr(mu), build.ptr(rstd),
+            build.ptr(gamma), build.ptr(beta), build.ptr(wpk), build.ptr(dx),
+            build.ptr(dyf), build.ptr(part), build.ptr(dgb[0]),
+            build.ptr(dgb[1]), build.ptr(_ticket(dev)),
+            ctypes.c_void_p(None) if probe is None else build.ptr(probe),
+            b, h, ww, ci, co,
+            _group_shape(co, group_size)[1], rt, slots, ncl, float(slope),
+            build.stream_ptr(dev))
+    build.check(err, "upsample_rows_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dx, dyf, dgb[0], dgb[1]
+
+
 class UpsampleRowsFn(torch.autograd.Function):
     """The whole K1L stage as one differentiable op (``_make_rows_op``'s
-    custom VJP): the stage kernel with residuals forward; folded GN/act
-    backward, the K1L bwd kernel for dx and ``weight_grad_folded`` for
+    custom VJP): the stage kernel with residuals forward; the K1L bwd
+    kernel for dx, dyf, dgamma and dbeta, then ``weight_grad_folded`` for
     dw."""
 
     @staticmethod
@@ -394,9 +548,8 @@ class UpsampleRowsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, gamma, beta, yf, mu, rstd = ctx.saved_tensors
-        dyf, dgamma, dbeta = gn_act_bwd_folded(
-            g, yf, mu, rstd, gamma, beta, slope=ctx.slope,
+        dx, dyf, dgamma, dbeta = upsample_rows_bwd(
+            g, yf, mu, rstd, gamma, beta, w, slope=ctx.slope,
             group_size=ctx.group_size)
-        dx = upsample_rows_bwd(dyf, w)
         return (dx.to(x.dtype), weight_grad_folded(x, dyf).to(w.dtype),
                 dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None)

@@ -108,16 +108,36 @@ def test_k1_bwd_matches_plain(cuda, b, h, ci, co, gs):
         assert _rel_err(a, r) <= SUM_TOL, name
 
 
-@pytest.mark.parametrize("b,h,ci,co", [(2, 32, 64, 32), (2, 16, 128, 64)])
-def test_k1l_bwd_matches_plain(cuda, b, h, ci, co):
+def _k1l_bwd_inputs(b, h, ci, co, device, seed, gs=16):
+    """The K1L backward's inputs from the stage kernel with residuals: g,
+    yf, mu, rstd, gamma, beta, w."""
     from levelgan_torch.kernels import upsample_rows as k1l
-    _, w, _, _ = _inputs(b, h, ci, co, cuda, seed=3)
-    dyf = torch.randn((b, h, h, 4 * co), device=cuda).to(torch.bfloat16)
+    x, w, gamma, beta = _inputs(b, h, ci, co, device, seed=seed)
+    _, yf, mu, rstd = k1l.upsample_block_rows(x, w, gamma, beta,
+                                              group_size=gs, residuals=True)
+    g = torch.randn((b, 2 * h, 2 * h, co), device=device,
+                    generator=torch.Generator(device).manual_seed(seed + 1))
+    return g.to(torch.bfloat16), yf, mu, rstd, gamma, beta, w
+
+
+def _assert_k1l_bwd_matches_plain(args, gs=16):
+    """The K1L backward kernel against its plain chain: dx, dyf, dgamma and
+    dbeta by SUM_TOL, one launch."""
+    from levelgan_torch.kernels import upsample_rows as k1l
     n = k1l.bwd_launches
-    dx = k1l.upsample_rows_bwd(dyf, w)
+    got = k1l.upsample_rows_bwd(*args, group_size=gs)
     torch.cuda.synchronize()
     assert k1l.bwd_launches == n + 1
-    assert _rel_err(dx, k1l.conv_rows_bwd_plain(dyf, w)) <= SUM_TOL
+    want = k1l.upsample_rows_bwd_plain(*args, group_size=gs)
+    for name, a, r in zip(("dx", "dyf", "dgamma", "dbeta"), got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _rel_err(a, r) <= SUM_TOL, name
+    return got
+
+
+@pytest.mark.parametrize("b,h,ci,co", [(2, 32, 64, 32), (2, 16, 128, 64)])
+def test_k1l_bwd_matches_plain(cuda, b, h, ci, co):
+    _assert_k1l_bwd_matches_plain(_k1l_bwd_inputs(b, h, ci, co, cuda, 3))
 
 
 def test_norm_penalty_matches_plain(cuda):
@@ -529,11 +549,7 @@ def test_k1_packed_weights_follow_in_place_updates(cuda):
 
 @pytest.mark.parametrize("b", [1, 3, 5])
 def test_k1l_bwd_matches_plain_at_odd_batches(cuda, b):
-    from levelgan_torch.kernels import upsample_rows as k1l
-    _, w, _, _ = _inputs(b, 32, 64, 32, cuda, seed=90)
-    dyf = torch.randn((b, 32, 32, 128), device=cuda).to(torch.bfloat16)
-    assert _rel_err(k1l.upsample_rows_bwd(dyf, w),
-                    k1l.conv_rows_bwd_plain(dyf, w)) <= SUM_TOL
+    _assert_k1l_bwd_matches_plain(_k1l_bwd_inputs(b, 32, 64, 32, cuda, 90))
 
 
 def test_k1_fwd_probe_stamps_every_phase(cuda):
@@ -696,3 +712,99 @@ def test_k1l_refuses_shapes_outside_the_cluster_rule(cuda):
     x, w, gamma, beta = _inputs(2, 64, 32, 32, cuda, seed=160)
     with pytest.raises(ValueError, match="cluster"):
         k1l.upsample_block_rows(x, w, gamma, beta)
+
+
+# ---- K1L's backward kernel: clusters, persistent grid, batch sums ---------
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
+def test_k1l_bwd_one_wave_plus_one(cuda, h, ci, co):
+    """One sample more than the card's clusters: a cluster takes a second
+    sample, the others none, and the batch sums see every sample."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    rt, slots = k1l.bwd_tile(h, h, ci, co, 16)
+    maxc = k1l.max_bwd_clusters(cuda, h, h, rt, ci, co, slots)
+    assert maxc >= 1
+    _assert_k1l_bwd_matches_plain(_k1l_bwd_inputs(maxc + 1, h, ci, co, cuda,
+                                                  170))
+
+
+@pytest.mark.parametrize("gs", [8, 32])
+def test_k1l_bwd_matches_plain_at_other_group_sizes(cuda, gs):
+    _assert_k1l_bwd_matches_plain(
+        _k1l_bwd_inputs(3, 32, 64, 32, cuda, 175, gs=gs), gs=gs)
+
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
+def test_k1l_bwd_is_bit_reproducible(cuda, h, ci, co):
+    """No atomics in the sums: two calls give the same dx, dyf, dgamma and
+    dbeta bits."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    args = _k1l_bwd_inputs(37, h, ci, co, cuda, 180)
+    one = k1l.upsample_rows_bwd(*args)
+    two = k1l.upsample_rows_bwd(*args)
+    for name, a, c in zip(("dx", "dyf", "dgamma", "dbeta"), one, two):
+        assert torch.equal(a, c), name
+
+
+def test_k1l_bwd_takes_a_non_contiguous_g(cuda):
+    """g as an NCHW tensor's permute: the wrapper copies it, same bits."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    g, *rest = _k1l_bwd_inputs(4, 32, 64, 32, cuda, 185)
+    g_nc = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not g_nc.is_contiguous() and torch.equal(g_nc, g)
+    got = _assert_k1l_bwd_matches_plain((g_nc, *rest))
+    for a, c in zip(got, k1l.upsample_rows_bwd(g, *rest)):
+        assert torch.equal(a, c)
+
+
+def test_k1l_bwd_shared_memory_formula_matches_the_source(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    lib = k1l._lib()
+    for args in [(32, 4, 64, 32, 4), (16, 4, 128, 64, 2), (16, 8, 128, 64, 3),
+                 (64, 2, 32, 64, 8)]:
+        assert lib.upsample_rows_bwd_smem(*args) == k1l.bwd_smem(*args)
+
+
+def test_k1l_bwd_refused_launch_raises(cuda, monkeypatch):
+    """A ring too deep for the shared memory: the occupancy query and the
+    launch both fail, the wrapper raises, and the next call runs."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    args = _k1l_bwd_inputs(2, 32, 64, 32, cuda, 190)
+    assert k1l.bwd_smem(32, 4, 64, 32, 8) > 232448
+    monkeypatch.setattr(k1l, "bwd_tile", lambda *a: (4, 8))
+    with pytest.raises(RuntimeError):
+        k1l.upsample_rows_bwd(*args)
+    monkeypatch.setattr(k1l, "max_bwd_clusters", lambda *a: 16)
+    n = k1l.bwd_launches
+    with pytest.raises(RuntimeError, match="upsample_rows_bwd"):
+        k1l.upsample_rows_bwd(*args)
+    assert k1l.bwd_launches == n
+    monkeypatch.undo()
+    _assert_k1l_bwd_matches_plain(args)
+
+
+def test_k1l_bwd_refuses_what_it_does_not_take(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    g, yf, mu, rstd, gamma, beta, w = _k1l_bwd_inputs(2, 32, 64, 32, cuda,
+                                                      195)
+    with pytest.raises(ValueError, match="bf16 g"):
+        k1l.upsample_rows_bwd(g.float(), yf, mu, rstd, gamma, beta, w)
+    with pytest.raises(ValueError, match="yf"):
+        k1l.upsample_rows_bwd(g, yf.float(), mu, rstd, gamma, beta, w)
+    with pytest.raises(ValueError, match="mu"):
+        k1l.upsample_rows_bwd(g, yf, mu[:1], rstd, gamma, beta, w)
+    with pytest.raises(ValueError, match="groups"):
+        k1l.upsample_rows_bwd(g, yf, mu, rstd, gamma, beta, w,
+                              group_size=10)
+
+
+def test_k1l_bwd_probe_times_every_phase(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    args = _k1l_bwd_inputs(20, 32, 64, 32, cuda, 200)
+    probe = torch.zeros(len(k1l.BWD_PHASES), dtype=torch.int64, device=cuda)
+    got = k1l.upsample_rows_bwd(*args, probe=probe)
+    for a, c in zip(got, k1l.upsample_rows_bwd(*args)):
+        assert torch.equal(a, c)
+    assert all(t > 0 for t in probe.tolist()), probe.tolist()
+    with pytest.raises(ValueError, match="probe"):
+        k1l.upsample_rows_bwd(*args, probe=probe[:2])

@@ -141,7 +141,7 @@ def test_k1l_folded_grads_equal_the_merged_conv_grads():
     xr, wr = xt.clone().requires_grad_(), wt.clone().requires_grad_()
     conv = conv_transpose_2x(xr, wr, compute_dtype=torch.float32)
     want_dx, want_dw = torch.autograd.grad((conv * dy).sum(), (xr, wr))
-    np.testing.assert_allclose(k1l.upsample_rows_bwd(k1l.fold(dy), wt).numpy(),
+    np.testing.assert_allclose(k1l.conv_rows_bwd_plain(k1l.fold(dy), wt).numpy(),
                                want_dx.numpy(), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(k1l.weight_grad_folded(xt, k1l.fold(dy)).numpy(),
                                want_dw.numpy(), atol=ATOL, rtol=RTOL)
@@ -171,6 +171,6 @@ def test_backward_wrappers_refuse_other_devices():
     g = torch.empty(2, 8, 8, 32, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError):
         k1.upsample_block_bwd(w, c, c, bc, bc, g, g)
+    yf = torch.empty(2, 4, 4, 128, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError):
-        k1l.upsample_rows_bwd(torch.empty(2, 4, 4, 128, dtype=torch.bfloat16,
-                                          **meta), w)
+        k1l.upsample_rows_bwd(g, yf, bc, bc, c, c, w)
