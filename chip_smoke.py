@@ -26,14 +26,17 @@ Needs one CUDA card (exits non-zero without one, and without the
    D2H and unpack times;
 6. training kernel parity + timing at the training shapes (B = 64) of
    gumbel_64 and wgan_gp_32: K1 forward, the K1L stage with residuals and
-   K1 bwd (whole and by launch,
-   on residuals from K1 forward) at every stage they serve, K1L bwd (the
-   whole backward: dx, dyf, dgamma, dbeta on residuals from the stage
-   kernel, two calls bit for bit; beside it gn_act_bwd_folded, dw and the
-   whole UpsampleRowsFn.backward, the first block's phases, and the
-   device kernels of one backward call: the kernel and dw's only) at
-   gumbel_64 up3 and up2, K2 core fwd / bwd on [64, 32768] and [64, 8192]
-   f32, and K2 fused (the critic trunk's forward and input gradient) at
+   K1 bwd (whole and by launch, on residuals from K1 forward; at gumbel_64
+   up2 the dx launch also at several placements of its buffers) at every
+   stage they serve,
+   K1L bwd (the whole backward: dx, dyf, dgamma, dbeta on residuals from
+   the stage kernel, two calls bit for bit; beside it gn_act_bwd_folded,
+   dw and the whole UpsampleRowsFn.backward, the first block's phases, and
+   the ATen operations of one backward call: exactly dw's and the
+   wrapper's) at gumbel_64 up3 and up2, the general K1L bwd kernel at two
+   shapes the staged one does not take and at gumbel_64 up3 beside the
+   staged one, K2 core fwd / bwd on [64, 32768] and [64, 8192] f32, and K2
+   fused (the critic trunk's forward and input gradient) at
    the 32x32 and 16x16 critics, with GroupNorm off and with group size 8
    (timed with its weight pack, as training calls it; the pack alone, its
    bits against ``pack_weights_plain``, the cluster, grid and ring, one
@@ -70,6 +73,7 @@ contract lines.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -693,6 +697,7 @@ def train_kernel_parity(cfg, device, rows):
     (the export phase holds it at B = 1024 only).  gumbel_64 also holds K1L
     bwd at a second shape (up2)."""
     import torch
+    import torch.nn.functional as F
     from levelgan_torch.kernels import gp_penalty as k2
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.kernels import upsample_rows as k1l
@@ -707,6 +712,7 @@ def train_kernel_parity(cfg, device, rows):
                                          batch=b)
         gen = torch.Generator(device).manual_seed(300 + i)
         flops = 32.0 * b * h * h * ci * co        # the dx contraction
+        wt_lib = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
         fits = k1.fits(h, h)
         kernels = ["K1 bwd"] if fits else ["K1L bwd"]
         if first and name == "up2":
@@ -761,7 +767,24 @@ def train_kernel_parity(cfg, device, rows):
                         w, gamma, beta, mu, rstd, g, ypre, slope=slope,
                         group_size=gs)
 
-                library = library_stage_bwd(x, w, gamma, beta, g, gs, slope)
+                # one autograd call of the library chain for the same stage:
+                # dx, dgamma, dbeta (dw is outside the kernel, as in JAX),
+                # built inline so that its tensors live until the next
+                # stage's: what a row leaves alive moves the later rows'
+                # buffers, and K1 bwd's dx launch reads up to 16% slower
+                # with its packed weight elsewhere (``placement_line``)
+                xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+                gl = gamma.to(bf16).requires_grad_()
+                bl = beta.to(bf16).requires_grad_()
+                yl = F.leaky_relu(F.group_norm(
+                    F.conv_transpose2d(xl, wt_lib, stride=2, padding=1),
+                    co // gs, gl, bl, 1e-5), slope)
+                gl_ct = g.permute(0, 3, 1, 2).contiguous()
+
+                def library():
+                    return torch.autograd.grad(yl, (xl, gl, bl), gl_ct,
+                                               retain_graph=True)
+
                 errs = errs_of(("dx", "dy", "dgamma", "dbeta"), run(),
                                plain(), SUM_TOL)
                 nbytes = (3 * g.numel() * 2 + b * h * h * ci * 2
@@ -783,7 +806,8 @@ def train_kernel_parity(cfg, device, rows):
                     return k1l.upsample_rows_bwd_plain(*args, slope=slope,
                                                        group_size=gs)
 
-                library = library_stage_bwd(x, w, gamma, beta, g, gs, slope)
+                library = library_stage_bwd(x, wt_lib, gamma, beta, g, gs,
+                                            slope)
                 got = run()
                 same = all(torch.equal(a, c) for a, c in zip(got, run()))
                 print(f"  K1L bwd {name}: two calls bit-identical: {same}")
@@ -812,6 +836,13 @@ def train_kernel_parity(cfg, device, rows):
                       f"GEMM with dgamma / dbeta {t_dx:.5f} ms at tile (nsd, "
                       f"rt) = {tile}, {k1.dx_smem(h, *tile)} bytes of shared "
                       "memory a block")
+                if first and name == "up2":
+                    # after gumbel_64's last K1 bwd row, so that no row
+                    # before it sees the buffers this leaves cached
+                    print("    " + placement_line(
+                        dy_k, w, lambda d, wd: k1.bwd_dx_pass(d, wd, s1_k,
+                                                              s2_k)))
+                    torch.cuda.empty_cache()
 
     # K2 core on the critic's flattened input gradient [64, H * W * n_tiles]
     gen = torch.Generator(device).manual_seed(400)
@@ -837,21 +868,53 @@ def train_kernel_parity(cfg, device, rows):
            PEAK_F32_FLOPS)
 
 
-def library_stage_bwd(x, w, gamma, beta, g, gs, slope):
+def placement_line(t, w, fn, offsets_mib=(0, 1, 2, 3),
+                   pads_mib=(0, 8, 32, 128)) -> str:
+    """``fn(t, w)`` timed (``queued_ms``) with copies of its input ``t`` at
+    several offsets into one buffer; with copies of the weight ``w`` (so
+    also of the packed weight the wrapper makes from it) made while a pad
+    of several sizes is held; and with copies of both behind the pads
+    (which moves the buffers the launch allocates too): how far a row's
+    time depends on where the allocator puts them."""
+    import torch
+    step = (1 << 20) // t.element_size()
+    buf = torch.empty(t.numel() + step * max(offsets_mib), dtype=t.dtype,
+                      device=t.device)
+    out = {"input at an offset": [], "weight behind a pad": [],
+           "both behind a pad": []}
+    for o in offsets_mib:
+        view = buf[o * step:o * step + t.numel()].view(t.shape)
+        view.copy_(t)
+        out["input at an offset"].append(queued_ms(lambda: fn(view, w)))
+    del buf, view
+    for p in pads_mib:
+        pad = torch.empty(p << 20, dtype=torch.uint8, device=t.device)
+        w2 = w.clone()
+        out["weight behind a pad"].append(queued_ms(lambda: fn(t, w2)))
+        t2 = t.clone()
+        out["both behind a pad"].append(queued_ms(lambda: fn(t2, w2)))
+        del pad, w2, t2
+    return ("the same launch with (ms) " + "; ".join(
+        f"{k} of " + " / ".join(str(v) for v in (
+            offsets_mib if k.startswith("input") else pads_mib))
+        + " MiB: " + " / ".join(f"{x:.5f}" for x in ts)
+        for k, ts in out.items()))
+
+
+def library_stage_bwd(x, w_t, gamma, beta, g, gs, slope):
     """The yardstick of a stage backward (K1 bwd, K1L bwd): one
     ``torch.autograd.grad`` of the library chain of ``library_stage`` for
-    (x, gamma, beta) at the output cotangent g (bf16, NCHW); w is not a
+    (x, gamma, beta) at the output cotangent g (bf16, NCHW), with the
+    weight ``w_t`` as ``F.conv_transpose2d`` takes it (bf16); it is not a
     target, so cuDNN computes no dw (dw is outside the kernel, as in
     JAX)."""
     import torch
     import torch.nn.functional as F
-    bf16 = torch.bfloat16
-    w_t = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
     xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
-    gl = gamma.to(bf16).requires_grad_()
-    bl = beta.to(bf16).requires_grad_()
+    gl = gamma.to(w_t.dtype).requires_grad_()
+    bl = beta.to(w_t.dtype).requires_grad_()
     yl = F.leaky_relu(F.group_norm(
-        F.conv_transpose2d(xl, w_t, stride=2, padding=1), w.shape[-1] // gs,
+        F.conv_transpose2d(xl, w_t, stride=2, padding=1), w_t.shape[1] // gs,
         gl, bl, 1e-5), slope)
     gl_ct = g.permute(0, 3, 1, 2).contiguous()
 
@@ -878,16 +941,17 @@ def kernel_names(fn, tries: int = 3) -> dict | None:
     return None
 
 
-def aten_ops(fn) -> set:
-    """The ATen operations one call of ``fn`` dispatches (after a warm-up
-    call), recorded on the host: unlike the profiler's device records,
-    none go missing.  A kernel launched through ctypes is not one."""
+def aten_ops(fn) -> collections.Counter:
+    """The ATen operations one call of ``fn`` dispatches, each with its
+    count (after a warm-up call), recorded on the host: unlike the
+    profiler's device records, none go missing.  A kernel launched through
+    ctypes is not one."""
     from torch.utils._python_dispatch import TorchDispatchMode
-    seen = set()
+    seen = collections.Counter()
 
     class Record(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            seen.add(str(func))
+            seen[str(func)] += 1
             return func(*args, **(kwargs or {}))
 
     fn()
@@ -896,20 +960,24 @@ def aten_ops(fn) -> set:
     return seen
 
 
-# what the K1L bwd wrapper dispatches itself: its outputs' allocation
-WRAPPER_OPS = {"aten.empty.memory_format", "aten.empty_like.default",
-               "aten.select.int"}
+# what the staged K1L bwd wrapper dispatches itself on a contiguous g: dx,
+# dyf and the clusters' partials allocated, the partials added over the
+# clusters, dgamma and dbeta selected from that sum
+WRAPPER_OPS = collections.Counter({
+    "aten.empty.memory_format": 2, "aten.empty_like.default": 1,
+    "aten.sum.dim_IntList": 1, "aten.select.int": 2})
 
 
 def k1l_bwd_parts(x, args, slope, gs):
-    """The K1L backward beside the pieces the parent's call ran: the
-    parent's eager GroupNorm / LeakyReLU pass (``gn_act_bwd_folded``, plain
-    PyTorch, on the card here only to be timed), dw (``weight_grad_folded``)
-    and the whole ``UpsampleRowsFn.backward`` as autograd runs it; the
+    """The K1L backward beside the pieces of the two-launch backward it
+    replaced: the eager GroupNorm / LeakyReLU pass (``gn_act_bwd_folded``,
+    plain PyTorch, on the card here only to be timed), dw
+    (``weight_grad_folded``) and the whole ``UpsampleRowsFn.backward`` as
+    autograd runs it; the
     kernel's cluster, grid and ring; and the device kernels of one backward
     call (``UpsampleRowsFn.backward`` on this thread).  Fails unless that
-    call dispatches only dw's ATen operations and the wrapper's
-    allocations beside the kernel."""
+    call dispatches exactly dw's ATen operations and the wrapper's
+    (``WRAPPER_OPS``), each as often, beside the kernel."""
     import torch
     from levelgan_torch.kernels import upsample_rows as k1l
     g, yf, mu, rstd, gamma, beta, w = args
@@ -926,9 +994,12 @@ def k1l_bwd_parts(x, args, slope, gs):
         return torch.autograd.grad(y, leaves, g, retain_graph=True)
 
     t_whole = queued_ms(whole)
-    rt, slots = k1l.bwd_tile(h, h, ci, co, gs)
+    general, rt, slots = k1l.bwd_plan(h, h, ci, co, gs)
+    if general:
+        fail(f"K1L bwd at {tuple(x.shape)} -> {co} runs the general kernel, "
+             "not the staged one")
     maxc = k1l.max_bwd_clusters(x.device, h, h, rt, ci, co, slots)
-    print(f"    of that: gn_act_bwd_folded alone (the parent's eager pass) "
+    print(f"    of that: gn_act_bwd_folded alone (the eager pass it replaced) "
           f"{t_gn:.5f} ms; weight_grad_folded (dw) {t_dw:.5f} ms; "
           f"UpsampleRowsFn.backward whole (the kernel, then dw; "
           f"autograd.grad) {t_whole:.5f} ms")
@@ -956,13 +1027,19 @@ def k1l_bwd_parts(x, args, slope, gs):
 
     bwd_ops = aten_ops(backward)
     dw_ops = aten_ops(lambda: k1l.weight_grad_folded(x, dyf))
-    extra = sorted(bwd_ops - dw_ops - WRAPPER_OPS)
-    print(f"    ATen operations of one backward call: {len(bwd_ops)} kinds, "
-          f"beyond dw's {len(dw_ops)} and the wrapper's allocations: "
-          f"{extra or 'none'}")
-    if extra:
-        fail(f"the K1L backward dispatched more than dw's operations: "
-             f"{extra}")
+    wrapper_ops = aten_ops(lambda: k1l.upsample_rows_bwd(
+        *args, slope=slope, group_size=gs))
+    want = dw_ops + WRAPPER_OPS
+    diff = {k: bwd_ops[k] - want[k] for k in bwd_ops.keys() | want.keys()
+            if bwd_ops[k] != want[k]}
+    print(f"    ATen operations of one backward call: "
+          f"{sum(bwd_ops.values())} of {len(bwd_ops)} kinds; dw's "
+          f"{sum(dw_ops.values())}, the wrapper's {dict(wrapper_ops)}; "
+          f"beyond dw's and WRAPPER_OPS: {diff or 'none'}")
+    if diff or wrapper_ops != WRAPPER_OPS:
+        fail(f"the K1L backward dispatched other ATen operations than dw's "
+             f"and WRAPPER_OPS: {diff}; the wrapper alone: "
+             f"{dict(wrapper_ops)}")
     names = kernel_names(backward)
     dw_names = kernel_names(lambda: k1l.weight_grad_folded(x, dyf))
     if names is None or dw_names is None:
@@ -974,6 +1051,76 @@ def k1l_bwd_parts(x, args, slope, gs):
           f"{sum(dw_names.values())} (the profiler drops records now and "
           "then; the ATen operations above are the check): "
           + "; ".join(f"x{n} {k[:60]}" for k, n in names.items()))
+
+
+# shapes the staged K1L backward does not take and the general kernel does:
+# gumbel_64's up3 with model.base_channels=128 (Ci = 128 needs 16 warp
+# tiles) and Co = 96 (a multiple of 32, not a power of two); then gumbel_64's
+# own up3, where the wrapper runs the staged kernel, to compare the two
+K1L_BWD_GENERAL = [(32, 128, 64), (32, 64, 96), (32, 64, 32)]
+
+
+def k1l_bwd_general(cfg, device):
+    """The general K1L backward kernel at ``K1L_BWD_GENERAL`` (B = 64,
+    inputs from the stage kernel with residuals; at a shape the staged
+    kernel takes, the plan is set to the general one for this check): dx,
+    dyf, dgamma and dbeta against the plain chain by SUM_TOL, two calls bit
+    for bit, and its time beside the plain chain's and its bound
+    (``queued_ms``)."""
+    import torch
+    from levelgan_torch.kernels import upsample_rows as k1l
+    gs, slope, b = cfg.model.group_size, cfg.model.leaky_slope, B_TRAIN
+    gen = torch.Generator(device).manual_seed(500)
+    chosen = k1l.bwd_plan
+    for i, (h, ci, co) in enumerate(K1L_BWD_GENERAL):
+        staged = not chosen(h, h, ci, co, gs)[0]
+        rt, slots = k1l.bwd_general_tile(h, h, ci, co, gs)
+        x, w, gamma, beta = stage_inputs(h, ci, co, device, seed=510 + i,
+                                         batch=b)
+        _, yf, mu, rstd = k1l.upsample_block_rows(
+            x, w, gamma, beta, slope=slope, group_size=gs, residuals=True)
+        g = torch.randn((b, 2 * h, 2 * h, co), generator=gen,
+                        device=device).to(torch.bfloat16)
+        args = (g, yf, mu, rstd, gamma, beta, w)
+
+        def run():
+            return k1l.upsample_rows_bwd(*args, slope=slope, group_size=gs)
+
+        def plain():
+            return k1l.upsample_rows_bwd_plain(*args, slope=slope,
+                                               group_size=gs)
+
+        t_staged = queued_ms(run) if staged else None
+        k1l.bwd_plan = lambda *a: (True, rt, slots)
+        try:
+            got = run()
+            same = all(torch.equal(a, c) for a, c in zip(got, run()))
+            t_k = queued_ms(run)
+        finally:
+            k1l.bwd_plan = chosen
+        errs = errs_of(("dx", "dyf", "dgamma", "dbeta"), got, plain(),
+                       SUM_TOL)
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in errs.items() if v[1] > v[2]}
+        t_p = queued_ms(plain)
+        b_ms, b_by = bound_ms(32.0 * b * h * h * ci * co,
+                              3 * yf.numel() * 2 + b * h * h * ci * 2
+                              + 16 * ci * co * 2 + 2 * b * co * 4 + 4 * co * 4)
+        print(f"  K1L bwd, general kernel, [{b}, {h}, {h}, {ci}, {co}]: "
+              f"clusters of {h // rt} blocks, weight "
+              + ("resident" if slots == co // 8 else f"ring of {slots}")
+              + f", {k1l.bwd_general_smem(h, ci, slots)} bytes of shared "
+              "memory a block; "
+              + " ".join(f"{k} abs {v[0]:.4g} rel {v[1]:.3g} (tol {v[2]:.3g})"
+                         for k, v in errs.items())
+              + f"; two calls bit-identical: {same}; ms={t_k:.5f} "
+              f"plain_ms={t_p:.5f} bound_ms={b_ms:.5f} ({b_by})"
+              + (f"; the staged kernel the wrapper runs here {t_staged:.5f}"
+                 if staged else ""))
+        if bad or not same:
+            fail(f"the general K1L bwd kernel at {(h, ci, co)}: "
+                 + (f"disagrees with its plain chain {bad}" if bad
+                    else "two calls differ"))
 
 
 def k1l_training_row(rows, config, stage, x, w, gamma, beta, slope, gs,
@@ -1738,6 +1885,9 @@ def main(argv=()) -> int:
                 print(f"training kernel parity and timing ({c.preset}, "
                       f"B={B_TRAIN}):")
                 train_kernel_parity(c, device, train_records)
+            print("K1L bwd's general kernel at shapes the staged one does "
+                  "not take, and at gumbel_64 up3:")
+            k1l_bwd_general(cfg, device)
             print(f"K2 fused parity and timing (B={B_TRAIN}):")
             fused_kernel_parity(device, train_records)
             for c in (cfg, cfg32):

@@ -1,7 +1,7 @@
 // K1L: the whole late upsample stage in one launch (ConvTranspose 4x4 / s2
 // SAME, GroupNorm, affine, LeakyReLU, depth-to-space), and its whole
-// backward in one launch (LeakyReLU + GroupNorm backward, dgamma / dbeta and
-// the input gradient).
+// backward in one launch (LeakyReLU + GroupNorm backward, the per-cluster
+// sums of dgamma / dbeta, and the input gradient).
 //
 // The forward replaces levelgan/kernels/upsample_rows.py:_conv_fwd (the
 // Pallas call at :253) together with the XLA pass that follows it in
@@ -74,8 +74,22 @@
 // 32 tile, dx out 16 bytes a lane.  The weight (pack_taps_dx, 4 taps x Ci x
 // 32 channels a step) stays resident where all its steps fit (up3: 80 KB)
 // and streams through a cp.async ring otherwise.  Each cluster sums its
-// samples' s1 and s2; the last block to finish (an atomic ticket) adds the
-// clusters' in cluster order into dbeta / dgamma.
+// samples' s1 and s2 in sample order into part [clusters][2][Co]; the
+// caller adds the clusters' (one .sum(0)) into dbeta / dgamma.
+//
+// The staged kernel holds a block's g and yf rows, the dyf tile of all 4Co
+// channels and one warp per 32 x 32 dx tile, so it takes only the shapes
+// where those fit (kernels/upsample_rows.py:bwd_tile).  The general kernel
+// takes every shape the stage kernel takes (rt = 128 / W, clusters of
+// H / rt <= 8 blocks, Ci <= 128, any Co a multiple of 32): it reads g and yf
+// from device memory, works through the cotangent channels 32 at a time
+// (pass 1 per chunk; then per chunk the group means, pass 2 into a tile of
+// that chunk's 4 x 32 channels and the chunk's 4 GEMM steps), computes the
+// tile's halo rows itself instead of receiving them, exchanges the
+// partial sums through device memory behind one cluster barrier a sample,
+// and gives each warp up to two 32 x 32 dx tiles.  Its shared memory does
+// not grow with Co.  The same fixed orders, so it too gives the same bits
+// in two calls.
 //
 #include <cooperative_groups.h>
 
@@ -542,7 +556,7 @@ __host__ __device__ inline BwdLayout bwd_layout(int W, int rt, int Ci, int Co,
   l.stat = l.cpart + 2 * MAX_CLUSTER * Co * 8;
   l.mm = l.stat + 2 * Co * 4;
   l.bar = l.mm + 2 * Co * 4;
-  l.total = l.bar + 48;            // four mbarriers and the ticket
+  l.total = l.bar + 32;            // four mbarriers
   return l;
 }
 
@@ -556,8 +570,7 @@ upsample_rows_bwd_kernel(const __nv_bfloat16* __restrict__ g,
                          const __nv_bfloat16* __restrict__ wpk,
                          __nv_bfloat16* __restrict__ dx,
                          __nv_bfloat16* __restrict__ dyf,
-                         float* __restrict__ part, float* __restrict__ dgamma,
-                         float* __restrict__ dbeta, int* __restrict__ counter,
+                         float* __restrict__ part,
                          unsigned long long* __restrict__ probe, int B, int H,
                          int W, int Ci, int Co, int gs, int rt, int slots,
                          float slope) {
@@ -586,7 +599,6 @@ upsample_rows_bwd_kernel(const __nv_bfloat16* __restrict__ g,
   const float* inbox = reinterpret_cast<const float*>(smem + lay.cpart);
   float* stat = reinterpret_cast<float*>(smem + lay.stat);   // [2][Co]
   float* mm = reinterpret_cast<float*>(smem + lay.mm);       // [2][Co]
-  int* ticket = reinterpret_cast<int*>(smem + lay.bar + 32);
   const uint32_t sbase = lgt::smem_addr(smem);
   const uint32_t bar = sbase + lay.bar;          // the rows have landed
   const uint32_t hbar = bar + 8;                 // the halo rows are in
@@ -987,39 +999,405 @@ upsample_rows_bwd_kernel(const __nv_bfloat16* __restrict__ g,
   // memory, and it waited for everything pushed into its own)
   lgt::cp_async_wait(0);
 
-  // ---- dbeta = sum s1, dgamma = sum s2 over the batch: each cluster's
-  // sums over its samples in order (rank 0's), then the last block to
-  // finish (its ticket) adds the clusters' in cluster order; it leaves the
-  // counter at zero -------------------------------------------------------
+  // ---- this cluster's sums over its samples (rank 0's), for dbeta = sum
+  // s1 and dgamma = sum s2 over the batch ----------------------------------
   if (rank == 0 && tid < Co) {
     part[(cid * 2) * Co + tid] = bs1;
     part[(cid * 2 + 1) * Co + tid] = bs2;
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *ticket = atomicAdd(counter, 1);
-  __syncthreads();
-  if (*ticket == static_cast<int>(gridDim.x) - 1) {
-    __threadfence();
-    for (int i = tid; i < 2 * Co; i += nthr) {
-      float a = 0.f;
-#pragma unroll 8
-      for (int cl = 0; cl < ncl; ++cl)
-        a += __ldcg(part + static_cast<size_t>(cl) * 2 * Co + i);
-      (i < Co ? dbeta : dgamma)[i % Co] = a;
-    }
-    if (tid == 0) *counter = 0;
-  }
   mark(12);
 }
 
+// ---------------------------------------------------------------------------
+// The general backward kernel: every shape the stage kernel takes (design
+// note at the top of this file).  A block owns rt = 128 / W folded rows of
+// one sample (M = 128), the H / rt blocks of a sample form a cluster, the
+// clusters are persistent over samples.
+// ---------------------------------------------------------------------------
+
+constexpr int GEN_PITCH = 4 * KC32 * 2 + 16;   // a tile position's bytes
+constexpr int GEN_MAXT = 2;                    // dx warp tiles of a warp
+constexpr int GEN_ITERS = MROWS / (BWD_MAXW * 32 / 16);   // pass-1 words
+
+// Byte offsets of a general block's shared memory: the dyf tile of one
+// chunk ((rt + 2) x (W + 2) positions of 4 parities x 32 channels bf16 + 16
+// bytes), the weight ring (`slots` steps of 4 taps x Ci rows), the warps'
+// partials of one chunk [8][2][32] and the chunk's group means [2][32].
+struct GenLayout {
+  int wstep, wring, red, mm, total;
+};
+
+__host__ __device__ inline GenLayout gen_layout(int W, int rt, int Ci,
+                                                int slots) {
+  GenLayout l;
+  l.wstep = 4 * Ci * ROWB;
+  l.wring = (rt + 2) * (W + 2) * GEN_PITCH;
+  l.red = l.wring + slots * l.wstep;
+  l.mm = l.red + BWD_MAXW * 2 * KC32 * 4;
+  l.total = l.mm + 2 * KC32 * 4;
+  return l;
+}
+
+__global__ void __launch_bounds__(BWD_MAXW * 32, 1)
+upsample_rows_bwd_general_kernel(const __nv_bfloat16* __restrict__ g,
+                                 const __nv_bfloat16* __restrict__ yf,
+                                 const float* __restrict__ mu,
+                                 const float* __restrict__ rstd,
+                                 const float* __restrict__ gamma,
+                                 const float* __restrict__ beta,
+                                 const __nv_bfloat16* __restrict__ wpk,
+                                 __nv_bfloat16* __restrict__ dx,
+                                 __nv_bfloat16* __restrict__ dyf,
+                                 float* __restrict__ xch,
+                                 float* __restrict__ part, int B, int H,
+                                 int W, int Ci, int Co, int gs, int rt,
+                                 int slots, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, nthr = blockDim.x, nw = nthr >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int m_blk = rt * W, wp = W + 2, row0 = rank * rt;
+  const int lw = __ffs(W) - 1;
+  const GenLayout lay = gen_layout(W, rt, Ci, slots);
+  unsigned char* tile = smem;
+  float* red = reinterpret_cast<float*>(smem + lay.red);   // [nw][2][32]
+  float* mm = reinterpret_cast<float*>(smem + lay.mm);     // [2][32]
+  const uint32_t sbase = lgt::smem_addr(smem);
+
+  const int cid = blockIdx.x / csize, ncl = gridDim.x / csize;
+  const int nsamp = cid < B ? (B - 1 - cid) / ncl + 1 : 0;
+  const int kcn = Co / KC32, nsteps = 4 * kcn;
+  const bool resident = slots >= nsteps;
+  // this cluster's exchange: [sample parity][rank][s1, s2][Co]
+  float* xs = xch + static_cast<size_t>(cid) * 2 * csize * 2 * Co;
+
+  // zero the tile once: its halo columns and the rows outside the sample
+  // are never written
+  for (int i = tid; i < lay.wring / 16; i += nthr)
+    reinterpret_cast<uint4*>(tile)[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  // weight step st = kc * 4 + parity: the parity's 4 taps x Ci rows of 32
+  // cotangent channels, from pack_taps_dx's [Ci/32][parity][kc][tap][32][32]
+  auto copy_step = [&](int st, int slot) {
+    const int kc = st >> 2, p = st & 3;
+    const uint32_t dst = sbase + lay.wring + slot * lay.wstep;
+    for (int idx = tid; idx < 16 * Ci; idx += nthr) {
+      const int q = idx & 3, n = (idx >> 2) & 31, tap = (idx >> 7) & 3,
+                nb = idx >> 9;
+      lgt::cp_async16(
+          dst + (tap * Ci + nb * 32 + n) * ROWB + q * 16,
+          wpk + ((((static_cast<size_t>(nb) * 4 + p) * kcn + kc) * 4 + tap) *
+                     32 + n) * 32 + q * 8);
+    }
+  };
+  const int wtotal = nsamp * nsteps;
+  int wq = 0;
+  auto queue_step = [&]() {
+    if (wq < wtotal) copy_step(wq % nsteps, wq % slots);
+    lgt::cp_async_commit();   // an empty group keeps the wait's count uniform
+    ++wq;
+  };
+  if (resident) {
+    if (nsamp > 0)
+      for (int st = 0; st < nsteps; ++st) copy_step(st, st);
+    lgt::cp_async_commit();
+  } else {
+    for (int s = 0; s < slots - 1; ++s) queue_step();
+  }
+
+  // the per-element passes: a thread takes 8 channels (cqq) of one parity
+  // pp of the chunk at positions pos0, pos0 + 16, ...
+  const int cqq = tid & 3, pp = (tid >> 2) & 3, pos0 = tid >> 4;
+  const int pstep = nthr >> 4;
+  const float cnt = 4.f * gs * H * W;
+  // the 16-byte words at folded (il, j), parity pp, channel c of sample b
+  auto yf_at = [&](size_t b, int il, int j, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(
+        yf + ((b * H + il) * W + j) * 4 * Co + pp * Co + c));
+  };
+  auto g_at = [&](size_t b, int il, int j, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(
+        g + ((b * 2 * H + 2 * il + (pp >> 1)) * 2 * W + 2 * j + (pp & 1)) *
+                Co + c));
+  };
+
+  // the dx GEMM: warp tile tl = warp + t nw (t < GEN_MAXT) owns positions
+  // wm * 32 .. + 32 and input channels wn * 32 .. + 32
+  const int wms = m_blk / 32, nwt = wms * (Ci / 32);
+  uint32_t a_base[GEN_MAXT][2], b_base[GEN_MAXT];
+  int wm[GEN_MAXT], wn[GEN_MAXT];
+#pragma unroll
+  for (int t = 0; t < GEN_MAXT; ++t) {
+    const int tl = min(warp + t * nw, nwt - 1);
+    wm[t] = tl % wms;
+    wn[t] = tl / wms;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m = wm[t] * 32 + mi * 16 + lgt::frag_a_row(lane);
+      const int il = m >> lw, j = m & (W - 1);
+      a_base[t][mi] = sbase + ((il + 2) * wp + j + 2) * GEN_PITCH +
+                      lgt::frag_a_koff(lane);
+    }
+    b_base[t] = sbase + lay.wring + wn[t] * 32 * ROWB + lgt::frag_b_off(lane);
+  }
+  const int ntl = (nwt - warp + nw - 1) / nw;   // this warp's tiles
+
+  int wt = 0;                 // weight steps consumed
+  for (int k = 0; k < nsamp; ++k) {
+    const size_t b = cid + static_cast<size_t>(k) * ncl;
+    float* xk = xs + static_cast<size_t>(k & 1) * csize * 2 * Co;
+
+    // ---- pass 1, a chunk at a time: the block's s1 = sum dout and s2 =
+    // sum dout * xn; fixed order: a thread's words -> the lanes of one
+    // chunk by butterfly -> warps 0..nw-1 -> (below) ranks 0..n-1 ---------
+    for (int kc = 0; kc < kcn; ++kc) {
+      const int c0 = kc * KC32 + cqq * 8;
+      float mu8[8], rs8[8], gm[8], bt[8], s1[8], s2[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        mu8[e] = mu[b * Co + c0 + e];
+        rs8[e] = rstd[b * Co + c0 + e];
+        gm[e] = gamma[c0 + e];
+        bt[e] = beta[c0 + e];
+        s1[e] = s2[e] = 0.f;
+      }
+      uint4 yw[GEN_ITERS], gw[GEN_ITERS];
+#pragma unroll
+      for (int u = 0; u < GEN_ITERS; ++u) {
+        const int pos = pos0 + u * pstep;
+        const int il = row0 + (pos >> lw), j = pos & (W - 1);
+        yw[u] = yf_at(b, il, j, c0);
+        gw[u] = g_at(b, il, j, c0);
+      }
+#pragma unroll
+      for (int u = 0; u < GEN_ITERS; ++u) {
+        float yv[8], gv[8];
+        unpack8(yw[u], yv);
+        unpack8(gw[u], gv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xn = (yv[e] - mu8[e]) * rs8[e];
+          const float d = xn * gm[e] + bt[e] >= 0.f ? gv[e] : slope * gv[e];
+          s1[e] += d;
+          s2[e] += d * xn;
+        }
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], o);
+          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], o);
+        }
+      if (lane < 4)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          red[(warp * 2) * KC32 + lane * 8 + e] = s1[e];
+          red[(warp * 2 + 1) * KC32 + lane * 8 + e] = s2[e];
+        }
+      __syncthreads();
+      if (tid < KC32) {
+        float a1 = 0.f, a2 = 0.f;
+        for (int w = 0; w < nw; ++w) {
+          a1 += red[(w * 2) * KC32 + tid];
+          a2 += red[(w * 2 + 1) * KC32 + tid];
+        }
+        xk[(rank * 2) * Co + kc * KC32 + tid] = a1;
+        xk[(rank * 2 + 1) * Co + kc * KC32 + tid] = a2;
+      }
+      __syncthreads();
+    }
+    // every rank's partials of this sample are in device memory (the
+    // barrier releases and acquires them at cluster scope); slot k & 1 is
+    // rewritten at sample k + 2, after every rank has passed this barrier
+    // of sample k + 1, so after its reads of sample k
+    cluster.sync();
+
+    float acc[GEN_MAXT][2][4][4];
+#pragma unroll
+    for (int t = 0; t < GEN_MAXT; ++t)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][mi][q][e] = 0.f;
+    for (int kc = 0; kc < kcn; ++kc) {
+      if (tid < KC32) {
+        // the chunk's sums in rank order; rank 0 adds them to this
+        // cluster's sums over its samples; the group means of gamma * s
+        // (a group divides 32 channels: lanes of this warp)
+        const int c = kc * KC32 + tid;
+        float t1 = 0.f, t2 = 0.f;
+        for (int r = 0; r < csize; ++r) {
+          t1 += __ldcg(xk + (r * 2) * Co + c);
+          t2 += __ldcg(xk + (r * 2 + 1) * Co + c);
+        }
+        if (rank == 0) {
+          float* pc = part + static_cast<size_t>(cid) * 2 * Co;
+          pc[c] = k ? pc[c] + t1 : t1;
+          pc[Co + c] = k ? pc[Co + c] + t2 : t2;
+        }
+        const float w1 = t1 * gamma[c], w2 = t2 * gamma[c];
+        const int g0 = lane / gs * gs;
+        float m1 = 0.f, m2 = 0.f;
+        for (int jj = 0; jj < gs; ++jj) {
+          m1 += __shfl_sync(0xffffffffu, w1, g0 + jj);
+          m2 += __shfl_sync(0xffffffffu, w2, g0 + jj);
+        }
+        mm[tid] = m1 / cnt;
+        mm[KC32 + tid] = m2 / cnt;
+      }
+      // the group means are in, and every warp is done with the previous
+      // chunk's tile
+      __syncthreads();
+
+      // ---- pass 2: dyf = rstd (dout gamma - m1 - xn m2) of the chunk in
+      // bf16, rows row0 - 1 .. row0 + rt inside the sample: the block's own
+      // rows to the tile and to device memory, the halo rows to the tile
+      const int c0 = kc * KC32 + cqq * 8;
+      float mu8[8], rs8[8], gm[8], bt[8], ap[8], an[8], bx[8], cx[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        mu8[e] = mu[b * Co + c0 + e];
+        rs8[e] = rstd[b * Co + c0 + e];
+        gm[e] = gamma[c0 + e];
+        bt[e] = beta[c0 + e];
+        ap[e] = rs8[e] * gm[e];
+        an[e] = ap[e] * slope;
+        bx[e] = -rs8[e] * mm[KC32 + cqq * 8 + e];
+        cx[e] = -rs8[e] * mm[cqq * 8 + e];
+      }
+      constexpr int UNR = 4;
+      const int npos = (rt + 2) * W;
+      for (int q0 = pos0; q0 < npos; q0 += UNR * pstep) {
+        uint4 yw[UNR], gw[UNR];
+#pragma unroll
+        for (int u = 0; u < UNR; ++u) {
+          const int q = q0 + u * pstep, il = row0 + (q >> lw) - 1;
+          if (q < npos && il >= 0 && il < H) {
+            yw[u] = yf_at(b, il, q & (W - 1), c0);
+            gw[u] = g_at(b, il, q & (W - 1), c0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UNR; ++u) {
+          const int q = q0 + u * pstep, tr = q >> lw, j = q & (W - 1);
+          const int il = row0 + tr - 1;
+          if (q < npos && il >= 0 && il < H) {
+            float yv[8], gv[8];
+            unpack8(yw[u], yv);
+            unpack8(gw[u], gv);
+            uint32_t out[4];
+#pragma unroll
+            for (int e = 0; e < 8; e += 2) {
+              float o[2];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int i = e + h;
+                const float xn = (yv[i] - mu8[i]) * rs8[i];
+                const float a = xn * gm[i] + bt[i] >= 0.f ? ap[i] : an[i];
+                o[h] = a * gv[i] + (bx[i] * xn + cx[i]);
+              }
+              out[e >> 1] = lgt::pack_bf16x2(o[0], o[1]);
+            }
+            const uint4 v = make_uint4(out[0], out[1], out[2], out[3]);
+            *reinterpret_cast<uint4*>(tile + (tr * wp + j + 1) * GEN_PITCH +
+                                      (pp * KC32 + cqq * 8) * 2) = v;
+            if (tr >= 1 && tr <= rt)
+              *reinterpret_cast<uint4*>(
+                  dyf + ((b * H + il) * W + j) * 4 * Co + pp * Co + c0) = v;
+          }
+        }
+      }
+      if (resident && k == 0 && kc == 0) lgt::cp_async_wait(0);
+      __syncthreads();        // the chunk's tile (and the weights) are in
+
+      // ---- the chunk's 4 GEMM steps, one a parity, its 4 taps ----------
+      for (int p = 0; p < 4; ++p, ++wt) {
+        if (!resident) {
+          // this step's weights have landed, and every warp is done with
+          // the step before it, whose slot the next copies go into
+          lgt::cp_async_wait(slots - 2);
+          __syncthreads();
+          queue_step();
+        }
+        const int pa = p >> 1, pb = p & 1;
+        const int wsl = (resident ? kc * 4 + p : wt % slots) * lay.wstep;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const int aoff =
+                p * KC32 * 2 - ((pa + r) * wp + pb + s) * GEN_PITCH;
+            const int wb = wsl + (2 * r + s) * Ci * ROWB;
+#pragma unroll
+            for (int kk = 0; kk < KC32 * 2; kk += 32) {
+#pragma unroll
+              for (int t = 0; t < GEN_MAXT; ++t) {
+                if (t < ntl) {
+                  uint32_t a0[4], a1[4], b0[4], b1[4];
+                  lgt::ldsm4(a0, a_base[t][0] + aoff + kk);
+                  lgt::ldsm4(a1, a_base[t][1] + aoff + kk);
+                  lgt::ldsm4(b0, b_base[t] + wb + kk);
+                  lgt::ldsm4(b1, b_base[t] + wb + 16 * ROWB + kk);
+                  lgt::mma16816(acc[t][0][0], a0, b0[0], b0[1]);
+                  lgt::mma16816(acc[t][0][1], a0, b0[2], b0[3]);
+                  lgt::mma16816(acc[t][0][2], a0, b1[0], b1[1]);
+                  lgt::mma16816(acc[t][0][3], a0, b1[2], b1[3]);
+                  lgt::mma16816(acc[t][1][0], a1, b0[0], b0[1]);
+                  lgt::mma16816(acc[t][1][1], a1, b0[2], b0[3]);
+                  lgt::mma16816(acc[t][1][2], a1, b1[0], b1[1]);
+                  lgt::mma16816(acc[t][1][3], a1, b1[2], b1[3]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    // dx, 16 bytes a lane: the quad exchange gives lane t the 8 channels of
+    // n8 tile t
+    const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int t = 0; t < GEN_MAXT; ++t) {
+      if (t < ntl) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = wm[t] * 32 + mi * 16 + g8 + 8 * h;
+            const int il = m >> lw, j = m & (W - 1);
+            uint32_t v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              v[q] = lgt::pack_bf16x2(acc[t][mi][q][2 * h],
+                                      acc[t][mi][q][2 * h + 1]);
+            lgt::quad_transpose(v, t4);
+            *reinterpret_cast<uint4*>(
+                dx + ((b * H + row0 + il) * W + j) * Ci + wn[t] * 32 +
+                8 * t4) = make_uint4(v[0], v[1], v[2], v[3]);
+          }
+      }
+    }
+  }
+  lgt::cp_async_wait(0);      // no copy in flight at exit
+}
+
+// The launch of either backward kernel: `general` picks the kernel, its
+// shared memory (bwd_layout or gen_layout) and its threads.
 cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                       int csize, int nclusters, int W, int rt, int Ci, int Co,
-                       int slots, cudaStream_t stream) {
-  const size_t smem = bwd_layout(W, rt, Ci, Co, slots).total;
+                       bool general, int csize, int nclusters, int W, int rt,
+                       int Ci, int Co, int slots, cudaStream_t stream) {
+  const size_t smem = general ? gen_layout(W, rt, Ci, slots).total
+                              : bwd_layout(W, rt, Ci, Co, slots).total;
+  const void* fn =
+      general ? reinterpret_cast<const void*>(upsample_rows_bwd_general_kernel)
+              : reinterpret_cast<const void*>(upsample_rows_bwd_kernel);
   cudaError_t err = cudaFuncSetAttribute(
-      upsample_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = csize;
@@ -1027,7 +1405,7 @@ cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   attr.val.clusterDim.z = 1;
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(nclusters * csize);
-  cfg.blockDim = dim3(32 * bwd_warps(W, rt, Ci));
+  cfg.blockDim = dim3(general ? BWD_MAXW * 32 : 32 * bwd_warps(W, rt, Ci));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
@@ -1037,64 +1415,85 @@ cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
 
 }  // namespace
 
-// Dynamic shared memory of one backward block (bwd_layout).
+// Dynamic shared memory of one staged backward block (bwd_layout).
 extern "C" size_t upsample_rows_bwd_smem(int W, int rt, int Ci, int Co,
                                          int slots) {
   return static_cast<size_t>(bwd_layout(W, rt, Ci, Co, slots).total);
 }
 
+// Dynamic shared memory of one general backward block (gen_layout).
+extern "C" size_t upsample_rows_bwd_general_smem(int W, int rt, int Ci,
+                                                 int slots) {
+  return static_cast<size_t>(gen_layout(W, rt, Ci, slots).total);
+}
+
 // How many backward clusters of H / rt blocks the card holds at once: into
 // *out.  Returns the query's error.
 extern "C" int upsample_rows_bwd_max_clusters(int H, int W, int rt, int Ci,
-                                              int Co, int slots, int* out) {
+                                              int Co, int slots, int general,
+                                              int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err =
-      bwd_config(cfg, attr, H / rt, 1, W, rt, Ci, Co, slots, nullptr);
+  cudaError_t err = bwd_config(cfg, attr, general != 0, H / rt, 1, W, rt, Ci,
+                               Co, slots, nullptr);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(out, upsample_rows_bwd_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(
+        out,
+        general
+            ? reinterpret_cast<const void*>(upsample_rows_bwd_general_kernel)
+            : reinterpret_cast<const void*>(upsample_rows_bwd_kernel),
+        &cfg);
   return err == cudaSuccess ? 0 : failed(err);
 }
 
 // K1L backward.  g [B,2H,2W,Co] bf16 (the output cotangent), yf [B,H,W,4Co]
 // bf16 and mu / rstd [B,Co] f32 (the forward's residuals; these four start
-// on 16 bytes, for the bulk copies), gamma / beta [Co] f32, wpk
-// (pack_taps_dx: [Ci/32][parity][Co/32][tap][32][32] bf16) -> dx [B,H,W,Ci]
-// bf16, dyf [B,H,W,4Co] bf16 (the pre-norm cotangent, rounded where
-// _make_rows_op rounds it), part [nclusters][2][Co] f32 (each cluster's
-// sum dout, sum dout * xn over its samples), dgamma / dbeta [Co] f32.  counter: one int, zero before the
-// launch and after it.  probe: null, or BWD_PHASES zeroed int64 that the
+// on 16 bytes, for the bulk copies and 16-byte loads), gamma / beta [Co]
+// f32, wpk (pack_taps_dx: [Ci/32][parity][Co/32][tap][32][32] bf16) -> dx
+// [B,H,W,Ci] bf16, dyf [B,H,W,4Co] bf16 (the pre-norm cotangent, rounded
+// where _make_rows_op rounds it) and part [nclusters][2][Co] f32 (each
+// cluster's sum dout, sum dout * xn over its samples).  `general` launches
+// the general kernel, which also takes xch [nclusters][2][H / rt][2][Co]
+// f32 (the partial sums' exchange; not read before it is written); the
+// staged kernel takes probe: null, or BWD_PHASES zeroed int64 that the
 // first block's thread 0 adds its phases' nanoseconds to.  The grid is
-// `nclusters` clusters of H / rt blocks of 32 * bwd_warps threads.  The
-// caller checks the shape rules (kernels/upsample_rows.py:bwd_tile): W >=
-// 16 dividing 128, rt * W a multiple of 32 and at most 128, H % rt == 0,
-// H / rt <= 8, Ci % 32 == 0, Co a power of two in 32..256, gs dividing 32,
-// bwd_warps <= 8 with 32 * bwd_warps a multiple of Co, slots >= 2 (at most
-// 3 unless it holds every step) and the shared memory within the card's
-// limit.  Returns the launch's error.
+// `nclusters` clusters of H / rt blocks.  The caller checks the shape rules
+// (kernels/upsample_rows.py: bwd_tile for the staged kernel, bwd_general_tile
+// for the general one) and the shared memory within the card's limit.
+// Returns the launch's error.
 extern "C" int upsample_rows_bwd(const void* g, const void* yf, const void* mu,
                                  const void* rstd, const void* gamma,
                                  const void* beta, const void* wpk, void* dx,
-                                 void* dyf, void* part, void* dgamma,
-                                 void* dbeta, void* counter, void* probe,
+                                 void* dyf, void* part, void* xch, void* probe,
                                  int B, int H, int W, int Ci, int Co, int gs,
-                                 int rt, int slots, int nclusters, float slope,
-                                 void* stream) {
+                                 int rt, int slots, int general, int nclusters,
+                                 float slope, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = bwd_config(cfg, attr, H / rt, nclusters, W, rt, Ci, Co,
-                               slots, static_cast<cudaStream_t>(stream));
+  cudaError_t err =
+      bwd_config(cfg, attr, general != 0, H / rt, nclusters, W, rt, Ci, Co,
+                 slots, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return failed(err);
-  err = cudaLaunchKernelEx(
-      &cfg, upsample_rows_bwd_kernel, static_cast<const __nv_bfloat16*>(g),
-      static_cast<const __nv_bfloat16*>(yf), static_cast<const float*>(mu),
-      static_cast<const float*>(rstd), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(wpk),
-      static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(dyf),
-      static_cast<float*>(part), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), static_cast<int*>(counter),
-      static_cast<unsigned long long*>(probe), B, H, W, Ci, Co, gs, rt, slots,
-      slope);
+  const auto* g16 = static_cast<const __nv_bfloat16*>(g);
+  const auto* yf16 = static_cast<const __nv_bfloat16*>(yf);
+  const auto* w16 = static_cast<const __nv_bfloat16*>(wpk);
+  if (general)
+    err = cudaLaunchKernelEx(
+        &cfg, upsample_rows_bwd_general_kernel, g16, yf16,
+        static_cast<const float*>(mu), static_cast<const float*>(rstd),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta), w16,
+        static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(dyf),
+        static_cast<float*>(xch), static_cast<float*>(part), B, H, W, Ci, Co,
+        gs, rt, slots, slope);
+  else
+    err = cudaLaunchKernelEx(
+        &cfg, upsample_rows_bwd_kernel, g16, yf16,
+        static_cast<const float*>(mu), static_cast<const float*>(rstd),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta), w16,
+        static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(dyf),
+        static_cast<float*>(part),
+        static_cast<unsigned long long*>(probe), B, H, W, Ci, Co, gs, rt,
+        slots, slope);
   if (err != cudaSuccess) return failed(err);
   return static_cast<int>(cudaGetLastError());
 }

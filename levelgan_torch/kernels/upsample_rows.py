@@ -49,12 +49,20 @@ reads it for dw, with torch matmuls), waits for its own halo rows and runs
 the dx GEMM from the tile (each parity its own 4 taps, ``mma.sync`` +
 ``ldmatrix``; the weight packed by ``pack_taps_dx`` once per version,
 resident where it fits, else streamed through a ring).  Each cluster sums
-its samples' s1 / s2, and the last block to finish adds the clusters' into
-dbeta / dgamma.  Only that ticket is taken atomically: every sum runs in
-a fixed order, so two calls give the same bits.  At gumbel_64 up3
+its samples' s1 / s2 into ``part``, and one ``.sum(0)`` adds the
+clusters' into dbeta / dgamma.  Every sum runs in a fixed order and
+nothing is atomic, so two calls give the same bits.  At gumbel_64 up3
 (B = 64) g and yf in and dyf and dx out are 58.7 MB (17.5 us at
 3.35 TB/s) against 4.29 GFLOP (4.3 us): the bytes bound it.  ``probe``
-times the first block's phases (``BWD_PHASES``).
+times the first block's phases (``BWD_PHASES``).  That kernel holds a
+block's g and yf rows and the dyf tile of all 4Co channels, one warp per
+dx tile (``bwd_tile``); where those do not fit (Ci = 128 at a 32 x 32
+input, Co = 96 or beyond 256, ...) ``bwd_plan`` picks the general kernel,
+which takes every shape the stage kernel takes (``bwd_general_tile``): it
+reads g and yf from device memory, works through the cotangent channels
+32 at a time, computes its tile's halo rows itself, exchanges the partial
+sums through device memory behind one cluster barrier a sample, and
+gives each warp up to two dx tiles.
 
 On a CPU tensor the wrappers run the plain versions
 (``upsample_block_rows_plain``: ``conv_rows_plain``, ``rows_stats``,
@@ -87,6 +95,8 @@ YS_BYTES = 4 * MROWS * NC * 2     # a block's bf16 output tile (csrc)
 SUMS_BYTES = (8 * 2 + 4 + 2) * NC * 4   # the sums of a block (csrc: TAIL)
 BWD_MAX_WARPS = 8     # warps of a backward block, at most (csrc: BWD_MAXW)
 BWD_MAX_RING = 3      # a streaming weight ring's slots, at most
+GEN_PITCH = 4 * KC * 2 + 16   # a general tile position's bytes (csrc)
+GEN_MAX_TILES = 2     # dx warp tiles a general warp holds (csrc: GEN_MAXT)
 # what the backward's ``probe`` sums, per phase over its first block's samples
 BWD_PHASES = ("set-up", "rows wait", "pass 1", "partials push",
               "partials wait", "sums", "pass 2", "halo push", "dyf out",
@@ -144,13 +154,16 @@ def _lib():
         smem.argtypes = [i32] * 3
         smem.restype = ctypes.c_size_t
         bwd = lib.upsample_rows_bwd
-        bwd.argtypes = [ptr] * 14 + [i32] * 9 + [f32, ptr]
+        bwd.argtypes = [ptr] * 12 + [i32] * 10 + [f32, ptr]
         bwd.restype = i32
         occ = lib.upsample_rows_bwd_max_clusters
-        occ.argtypes = [i32] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        occ.argtypes = [i32] * 7 + [ctypes.POINTER(ctypes.c_int)]
         occ.restype = i32
         smem = lib.upsample_rows_bwd_smem
         smem.argtypes = [i32] * 5
+        smem.restype = ctypes.c_size_t
+        smem = lib.upsample_rows_bwd_general_smem
+        smem.argtypes = [i32] * 4
         smem.restype = ctypes.c_size_t
     return lib
 
@@ -386,21 +399,22 @@ def bwd_warps(w: int, rt: int, ci: int) -> int:
 
 
 def bwd_smem(w: int, rt: int, ci: int, co: int, slots: int) -> int:
-    """Dynamic shared memory of one backward block (csrc: ``bwd_layout``):
+    """Dynamic shared memory of one staged backward block (csrc:
+    ``bwd_layout``):
     the block's g rows and yf rows (8 rt W Co bytes each), the dyf tile of
     (rt + 2) x (W + 2) positions of 4Co bf16 + 16 bytes, ``slots`` weight
     steps of 4 taps x Ci rows, the sums (every rank's partials of two
-    samples), the sample's mean / rstd and group means, and the
+    samples), the sample's mean / rstd and group means, and four
     mbarriers."""
     m = rt * w
     return (16 * m * co + (rt + 2) * (w + 2) * (8 * co + 16)
             + slots * 4 * ci * ROW_BYTES
-            + (2 * bwd_warps(w, rt, ci) + 4 * MAX_CLUSTER + 4) * co * 4 + 48)
+            + (2 * bwd_warps(w, rt, ci) + 4 * MAX_CLUSTER + 4) * co * 4 + 32)
 
 
 def bwd_tile(h: int, w: int, ci: int, co: int,
              group_size: int) -> tuple[int, int]:
-    """(rt, weight slots) of the backward kernel at an input shape.
+    """(rt, weight slots) of the staged backward kernel at an input shape.
 
     A block takes rt folded rows (rt * W positions, a multiple of 32 and at
     most 128) with one warp per 32 positions x 32 input channels (at most
@@ -433,35 +447,74 @@ def bwd_tile(h: int, w: int, ci: int, co: int,
         f"fits {SMEM_MAX} bytes of shared memory")
 
 
+def bwd_general_smem(w: int, ci: int, slots: int) -> int:
+    """Dynamic shared memory of one general backward block (csrc:
+    ``gen_layout``): the dyf tile of one 32-channel chunk, (rt + 2) x
+    (W + 2) positions of 4 x 32 bf16 + 16 bytes with rt = 128 / W,
+    ``slots`` weight steps of 4 taps x Ci rows, the warps' partials of one
+    chunk and its group means.  Nothing grows with Co."""
+    rt = MROWS // w
+    return ((rt + 2) * (w + 2) * GEN_PITCH + slots * 4 * ci * ROW_BYTES
+            + (BWD_MAX_WARPS * 2 + 2) * KC * 4)
+
+
+def bwd_general_tile(h: int, w: int, ci: int, co: int,
+                     group_size: int) -> tuple[int, int]:
+    """(rt, weight slots) of the general backward kernel: rt = 128 / W as
+    in the stage kernel (clusters of H / rt <= 8 blocks), 8 warps holding
+    the (128 / 32) x (Ci / 32) dx tiles, at most two each (Ci <= 128); the
+    weight resident where its steps fit, else a ring of 3 or 2 slots.  It
+    takes every shape ``stage_tile`` takes."""
+    gs = _group_shape(co, group_size)[1]
+    rt = MROWS // w if w and MROWS % w == 0 else 0
+    tiles = MROWS // 32 * (ci // KC)
+    if (w < 16 or not rt or h % rt or h // rt > MAX_CLUSTER or ci % KC
+            or co % NC or NC % gs
+            or tiles > BWD_MAX_WARPS * GEN_MAX_TILES):
+        raise ValueError(
+            f"K1L bwd shape rule violated: W={w} (divides {MROWS}, >= 16), "
+            f"H={h} (a multiple of 128 / W = {rt or '-'}, at most "
+            f"{MAX_CLUSTER} times it), ci={ci} (multiple of {KC}, at most "
+            f"{BWD_MAX_WARPS * GEN_MAX_TILES * KC // (MROWS // 32)}), "
+            f"co={co} (multiple of {NC}), group size {gs} (divides {NC})")
+    steps = 4 * co // KC
+    for slots in (steps, *range(min(BWD_MAX_RING, steps - 1), 1, -1)):
+        if bwd_general_smem(w, ci, slots) <= SMEM_MAX:
+            return rt, slots
+    raise ValueError(f"K1L bwd at W={w}, ci={ci} needs "
+                     f"{bwd_general_smem(w, ci, 2)} bytes of shared memory "
+                     f"(at most {SMEM_MAX})")
+
+
+def bwd_plan(h: int, w: int, ci: int, co: int,
+             group_size: int) -> tuple[bool, int, int]:
+    """(general, rt, slots): the staged kernel's tile where ``bwd_tile``
+    takes the shape, else the general kernel's (``bwd_general_tile``)."""
+    try:
+        return (False, *bwd_tile(h, w, ci, co, group_size))
+    except ValueError:
+        return (True, *bwd_general_tile(h, w, ci, co, group_size))
+
+
 def max_bwd_clusters(device, h: int, w: int, rt: int, ci: int, co: int,
-                     slots: int) -> int:
+                     slots: int, general: bool = False) -> int:
     """How many backward clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``), asked once per shape."""
-    key = ("bwd", device, h, w, rt, ci, co, slots)
+    key = ("bwd", device, h, w, rt, ci, co, slots, general)
     if key not in _occupancy:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
             err = _lib().upsample_rows_bwd_max_clusters(
-                h, w, rt, ci, co, slots, ctypes.byref(out))
+                h, w, rt, ci, co, slots, int(general), ctypes.byref(out))
         build.check(err, "upsample_rows_bwd_max_clusters")
         if out.value < 1:
+            smem = (bwd_general_smem(w, ci, slots) if general
+                    else bwd_smem(w, rt, ci, co, slots))
             raise RuntimeError(
-                f"K1L bwd: no cluster of {h // rt} blocks with "
-                f"{bwd_smem(w, rt, ci, co, slots)} bytes of shared memory "
-                "each fits the card")
+                f"K1L bwd: no cluster of {h // rt} blocks with {smem} bytes "
+                "of shared memory each fits the card")
         _occupancy[key] = out.value
     return _occupancy[key]
-
-
-_tickets: dict = {}
-
-
-def _ticket(device) -> torch.Tensor:
-    """The backward kernel's counter of finished blocks on ``device``: zero
-    before every launch; the last block of a launch sets it back to zero."""
-    if device not in _tickets:
-        _tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _tickets[device]
 
 
 def upsample_rows_bwd(g: torch.Tensor, yf: torch.Tensor, mu: torch.Tensor,
@@ -474,8 +527,10 @@ def upsample_rows_bwd(g: torch.Tensor, yf: torch.Tensor, mu: torch.Tensor,
     on 16 bytes) -> (dx [B, H, W, Ci],
     dyf [B, H, W, 4Co], dgamma [Co], dbeta [Co]); dx and dyf in yf's dtype
     (bf16 on the card), dgamma / dbeta f32.  A g that is not contiguous is
-    copied first.  ``probe``, a zeroed int64 tensor of len(BWD_PHASES) on
-    the card, gets the nanoseconds the first block spent in each phase."""
+    copied first.  The staged kernel runs where ``bwd_tile`` takes the
+    shape, else the general one (``bwd_plan``).  ``probe``, a zeroed int64
+    tensor of len(BWD_PHASES) on the card, gets the nanoseconds the staged
+    kernel's first block spent in each phase."""
     if g.device.type == "cpu":
         return upsample_rows_bwd_plain(g, yf, mu, rstd, gamma, beta, w,
                                        slope=slope, group_size=group_size)
@@ -502,8 +557,10 @@ def upsample_rows_bwd(g: torch.Tensor, yf: torch.Tensor, mu: torch.Tensor,
             or not probe.is_contiguous() or probe.numel() < len(BWD_PHASES)):
         raise ValueError(f"K1L bwd probe must be a contiguous int64 tensor of "
                          f"at least {len(BWD_PHASES)} on {dev}")
-    rt, slots = bwd_tile(h, ww, ci, co, group_size)
-    ncl = min(b, max_bwd_clusters(dev, h, ww, rt, ci, co, slots))
+    general, rt, slots = bwd_plan(h, ww, ci, co, group_size)
+    if probe is not None and general:
+        raise ValueError("K1L bwd: the probe times the staged kernel only")
+    ncl = min(b, max_bwd_clusters(dev, h, ww, rt, ci, co, slots, general))
     g, mu, rstd = g.contiguous(), mu.contiguous(), rstd.contiguous()
     gamma, beta = gamma.contiguous(), beta.contiguous()
     if g.data_ptr() % 16 or mu.data_ptr() % 16 or rstd.data_ptr() % 16:
@@ -513,21 +570,24 @@ def upsample_rows_bwd(g: torch.Tensor, yf: torch.Tensor, mu: torch.Tensor,
     dx = torch.empty((b, h, ww, ci), dtype=torch.bfloat16, device=dev)
     dyf = torch.empty_like(yf)
     part = torch.empty((ncl, 2, co), dtype=torch.float32, device=dev)
-    dgb = torch.empty((2, co), dtype=torch.float32, device=dev)
+    none = ctypes.c_void_p(None)
+    xch = (torch.empty((ncl, 2, h // rt, 2, co), dtype=torch.float32,
+                       device=dev) if general else None)
     with torch.cuda.device(dev):
         err = _lib().upsample_rows_bwd(
             build.ptr(g), build.ptr(yf), build.ptr(mu), build.ptr(rstd),
             build.ptr(gamma), build.ptr(beta), build.ptr(wpk), build.ptr(dx),
-            build.ptr(dyf), build.ptr(part), build.ptr(dgb[0]),
-            build.ptr(dgb[1]), build.ptr(_ticket(dev)),
-            ctypes.c_void_p(None) if probe is None else build.ptr(probe),
-            b, h, ww, ci, co,
-            _group_shape(co, group_size)[1], rt, slots, ncl, float(slope),
-            build.stream_ptr(dev))
+            build.ptr(dyf), build.ptr(part),
+            build.ptr(xch) if general else none,
+            none if probe is None else build.ptr(probe), b, h, ww, ci, co,
+            _group_shape(co, group_size)[1], rt, slots, int(general), ncl,
+            float(slope), build.stream_ptr(dev))
     build.check(err, "upsample_rows_bwd")
     global bwd_launches
     bwd_launches += 1
-    return dx, dyf, dgb[0], dgb[1]
+    # each cluster's sums over its samples, added over the clusters
+    dgb = part.sum(0)
+    return dx, dyf, dgb[1], dgb[0]
 
 
 class UpsampleRowsFn(torch.autograd.Function):

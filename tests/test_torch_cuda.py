@@ -53,8 +53,9 @@ def test_k1_matches_plain(cuda, b, h, ci, co, gs):
     _assert_close(y, upsample_block(x, w, gamma, beta, group_size=gs))
 
 
-# K1L stage shapes (H, Ci, Co): gumbel_64 up3 and up2 as a second shape
-K1L_SHAPES = [(32, 64, 32), (16, 128, 64)]
+# K1L stage shapes (H, Ci, Co): gumbel_64 up3, up2 as a second shape, and
+# up3 at model.base_channels=128 (the backward's general kernel)
+K1L_SHAPES = [(32, 64, 32), (16, 128, 64), (32, 128, 64)]
 
 
 @pytest.mark.parametrize("h,ci,co", K1L_SHAPES)
@@ -135,7 +136,8 @@ def _assert_k1l_bwd_matches_plain(args, gs=16):
     return got
 
 
-@pytest.mark.parametrize("b,h,ci,co", [(2, 32, 64, 32), (2, 16, 128, 64)])
+@pytest.mark.parametrize("b,h,ci,co", [(2, 32, 64, 32), (2, 16, 128, 64),
+                                       (2, 32, 128, 64), (3, 32, 64, 96)])
 def test_k1l_bwd_matches_plain(cuda, b, h, ci, co):
     _assert_k1l_bwd_matches_plain(_k1l_bwd_inputs(b, h, ci, co, cuda, 3))
 
@@ -721,8 +723,8 @@ def test_k1l_bwd_one_wave_plus_one(cuda, h, ci, co):
     """One sample more than the card's clusters: a cluster takes a second
     sample, the others none, and the batch sums see every sample."""
     from levelgan_torch.kernels import upsample_rows as k1l
-    rt, slots = k1l.bwd_tile(h, h, ci, co, 16)
-    maxc = k1l.max_bwd_clusters(cuda, h, h, rt, ci, co, slots)
+    general, rt, slots = k1l.bwd_plan(h, h, ci, co, 16)
+    maxc = k1l.max_bwd_clusters(cuda, h, h, rt, ci, co, slots, general)
     assert maxc >= 1
     _assert_k1l_bwd_matches_plain(_k1l_bwd_inputs(maxc + 1, h, ci, co, cuda,
                                                   170))
@@ -763,6 +765,42 @@ def test_k1l_bwd_shared_memory_formula_matches_the_source(cuda):
     for args in [(32, 4, 64, 32, 4), (16, 4, 128, 64, 2), (16, 8, 128, 64, 3),
                  (64, 2, 32, 64, 8)]:
         assert lib.upsample_rows_bwd_smem(*args) == k1l.bwd_smem(*args)
+    for w, ci, slots in [(32, 128, 3), (32, 64, 3), (128, 96, 4), (16, 32, 2)]:
+        assert (lib.upsample_rows_bwd_general_smem(w, 128 // w, ci, slots)
+                == k1l.bwd_general_smem(w, ci, slots))
+
+
+def test_k1l_bwd_general_kernel_at_other_group_sizes_and_rings(cuda):
+    """The general kernel with groups of 8 and 32 channels, and with its
+    weight resident (Co = 32 at Ci = 128) as well as streamed."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    for gs, (h, ci, co) in [(8, (32, 128, 64)), (32, (32, 128, 32))]:
+        general, _, slots = k1l.bwd_plan(h, h, ci, co, gs)
+        assert general and (slots == co // 8) == (co == 32)
+        _assert_k1l_bwd_matches_plain(
+            _k1l_bwd_inputs(3, h, ci, co, cuda, 205, gs=gs), gs=gs)
+
+
+@pytest.mark.parametrize("h,ci,co", K1L_SHAPES[:2])
+def test_k1l_bwd_general_kernel_at_the_staged_shapes(cuda, monkeypatch, h,
+                                                     ci, co):
+    """The general kernel where the wrapper runs the staged one (its plan
+    set by hand): the same function, and two calls give the same bits."""
+    from levelgan_torch.kernels import upsample_rows as k1l
+    rt, slots = k1l.bwd_general_tile(h, h, ci, co, 16)
+    monkeypatch.setattr(k1l, "bwd_plan", lambda *a: (True, rt, slots))
+    args = _k1l_bwd_inputs(5, h, ci, co, cuda, 215)
+    one = _assert_k1l_bwd_matches_plain(args)
+    for a, c in zip(one, k1l.upsample_rows_bwd(*args)):
+        assert torch.equal(a, c)
+
+
+def test_k1l_bwd_general_kernel_takes_no_probe(cuda):
+    from levelgan_torch.kernels import upsample_rows as k1l
+    args = _k1l_bwd_inputs(2, 32, 128, 64, cuda, 210)
+    probe = torch.zeros(len(k1l.BWD_PHASES), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="probe"):
+        k1l.upsample_rows_bwd(*args, probe=probe)
 
 
 def test_k1l_bwd_refused_launch_raises(cuda, monkeypatch):

@@ -7,8 +7,10 @@ index formulas: the per-rank dyf tiles with their halo rows, the dx gather
 from the tiles against ``pack_taps_dx``'s steps, the pass-1 vectors' g
 elements, the fixed order of the sums (a thread's vectors, the butterfly
 over the lanes of a channel chunk, warps, cluster ranks), the shared-memory
-formula and the chooser; and the plain chain against the JAX package's VJP
-at one more shape.
+formula and the chooser; the general kernel's plan (chunks of 32
+cotangent channels, halo rows computed by the block itself) and its
+chooser against every shape the stage kernel takes; and the plain chain
+against the JAX package's VJP at one more shape.
 """
 
 import jax
@@ -25,6 +27,9 @@ from levelgan_torch.models import Generator
 
 # gumbel_64 up3 (the preset's K1L stage) and up2 as a second shape
 SHAPES = [(32, 64, 32), (16, 128, 64)]          # (H = W, Ci, Co)
+# shapes only the general kernel takes: up3 at model.base_channels=128,
+# and Co = 96
+GENERAL_SHAPES = [(32, 128, 64), (32, 64, 96)]
 
 
 def _residuals(b, h, ci, co, gs=16, seed=0):
@@ -236,15 +241,16 @@ def test_bwd_smem_is_the_sum_of_its_parts():
     """The formula at the gumbel_64 shapes, part by part (csrc:
     ``bwd_layout``): g and yf rows, the haloed tile, the weight steps, the
     sums (every rank's partials of two samples), mean / rstd, the group
-    means and four mbarriers."""
+    means and four mbarriers (no ticket: the clusters' sums are added by
+    the wrapper)."""
     # up3: rt 4, 8 warps, the 4 weight steps resident
     assert k1l.bwd_tile(32, 32, 64, 32, 16) == (4, 4)
     assert k1l.bwd_smem(32, 4, 64, 32, 4) == (
         2 * (8 * 64 * 32 * 2) + 6 * 34 * (128 * 2 + 16) + 4 * 4 * 64 * 80
-        + (2 * 8 + 4 * 8 + 4) * 32 * 4 + 48) == 209648
+        + (2 * 8 + 4 * 8 + 4) * 32 * 4 + 32) == 209632
     # up2: rt 4 (8 rows would need 16 warps and 308 KB), a ring of 2
     assert k1l.bwd_tile(16, 16, 128, 64, 16) == (4, 2)
-    assert k1l.bwd_smem(16, 4, 128, 64, 2) == 217840
+    assert k1l.bwd_smem(16, 4, 128, 64, 2) == 217824
     assert k1l.bwd_smem(16, 8, 128, 64, 2) > k1.SMEM_MAX
     assert k1l.bwd_smem(16, 4, 128, 64, 3) > k1.SMEM_MAX
 
@@ -320,3 +326,178 @@ def test_k1l_vjp_matches_jax_rows_at_group_size_4():
     for name, a, r in zip(("dx", "dw", "dgamma", "dbeta"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
                                    rtol=1e-4, err_msg=name)
+
+
+# ---- the general kernel ----------------------------------------------------
+
+def _group_sizes(co):
+    return [g for g in (4, 8, 16, 32) if co % g == 0]
+
+
+def test_bwd_plan_takes_every_shape_the_stage_kernel_takes():
+    """Every (H, W, Ci, Co, group size) that ``stage_tile`` takes, the
+    backward takes too: the staged kernel where ``bwd_tile`` fits it, else
+    the general one, with clusters of the stage kernel's size and its block
+    within the shared memory."""
+    taken = general = 0
+    for h in (8, 16, 32, 64, 128, 256):
+        for w in (8, 16, 32, 64, 128, 256):
+            for ci in range(32, 513, 32):
+                for co in (*range(32, 513, 32), 768, 1024, 2048):
+                    for gsz in _group_sizes(co):
+                        try:
+                            csize, _ = k1l.stage_tile(h, w, ci, co, gsz)
+                        except ValueError:
+                            continue
+                        gen, rt, slots = k1l.bwd_plan(h, w, ci, co, gsz)
+                        taken += 1
+                        if gen:
+                            general += 1
+                            assert rt == k1l.MROWS // w and h // rt == csize
+                            assert (k1l.bwd_general_smem(w, ci, slots)
+                                    <= k1.SMEM_MAX)
+                        else:
+                            assert (k1l.bwd_smem(w, rt, ci, co, slots)
+                                    <= k1.SMEM_MAX)
+    assert taken > 1000 and 0 < general < taken
+    # the two cases the staged kernel refuses: 16 warp tiles at Ci = 128,
+    # and Co = 96
+    assert k1l.bwd_plan(32, 32, 128, 64, 16)[0]
+    assert k1l.bwd_plan(32, 32, 64, 96, 16)[0]
+    assert not k1l.bwd_plan(32, 32, 64, 32, 16)[0]
+
+
+def test_bwd_general_smem_is_the_sum_of_its_parts():
+    """The general block's formula part by part (csrc: ``gen_layout``):
+    the haloed tile of one chunk, the weight steps, the warps' partials of
+    one chunk and its group means; the largest, at W = 128, still fits."""
+    # Ci = 128 at 32 x 32, Co = 64: 8 steps of 40 KB do not fit, a ring of 3
+    assert k1l.bwd_general_tile(32, 32, 128, 64, 16) == (4, 3)
+    assert k1l.bwd_general_smem(32, 128, 3) == (
+        6 * 34 * (4 * 32 * 2 + 16) + 3 * 4 * 128 * 80
+        + (8 * 2 + 2) * 32 * 4) == 180672
+    assert k1l.bwd_general_smem(32, 128, 8) > k1.SMEM_MAX
+    # Co = 96 at Ci = 64: 12 steps of 20 KB do not fit, a ring of 3
+    assert k1l.bwd_general_tile(32, 32, 64, 96, 16) == (4, 3)
+    # W = 128: one row a block, the stage kernel's widest Ci there is 96
+    assert k1l.bwd_general_tile(8, 128, 96, 32, 16) == (1, 4)
+    assert k1l.bwd_general_smem(128, 96, 4) <= k1.SMEM_MAX
+
+
+@pytest.mark.parametrize("args,match", [
+    ((32, 32, 160, 32, 16), "ci=160"),     # 20 warp tiles, over 2 a warp
+    ((32, 32, 64, 48, 16), "co=48"),       # co not a multiple of 32
+    ((64, 32, 64, 32, 16), "H=64"),        # 16 blocks a cluster
+    ((32, 32, 64, 64, 64), "group size 64"),  # a group beyond 32 channels
+])
+def test_bwd_general_tile_refuses_other_shapes(args, match):
+    with pytest.raises(ValueError, match=match):
+        k1l.bwd_general_tile(*args)
+
+
+def _general_order_sums(dout, xn, rt, nthr=256):
+    """Per-sample (s1, s2) [Co] as the general kernel sums them: chunk by
+    chunk of 32 channels, thread t takes the 8 channels 8 (t & 3) of parity
+    (t >> 2) & 3 at positions t >> 4, + 16, ...; its words in order, the
+    butterfly over lanes t ^ 4, t ^ 8, t ^ 16, warps in order, ranks in
+    order.  dout, xn: [H, W, 4Co]."""
+    h, w, c4 = dout.shape
+    co = c4 // 4
+    t = torch.arange(nthr)
+    cqq, pp, pos0 = t & 3, (t >> 2) & 3, t >> 4
+    out = []
+    for vals in (dout, dout * xn):
+        total = torch.zeros(co)
+        ranks = []
+        for r in range(h // rt):
+            rows = vals[r * rt:(r + 1) * rt].reshape(rt * w, 4, co)
+            block = torch.zeros(co)
+            for kc in range(co // 32):
+                part = torch.zeros(nthr, 8)
+                for u in range(rt * w // (nthr // 16)):
+                    pos = pos0 + u * (nthr // 16)
+                    ch = kc * 32 + cqq[:, None] * 8 + torch.arange(8)
+                    part = part + rows[pos[:, None], pp[:, None], ch]
+                lanes = part.reshape(nthr // 32, 32, 8)
+                for o in (4, 8, 16):
+                    lanes = lanes + lanes[:, torch.arange(32) ^ o]
+                red = lanes[:, :4].reshape(nthr // 32, 32)
+                acc = torch.zeros(32)
+                for wi in range(nthr // 32):
+                    acc = acc + red[wi]
+                block[kc * 32:(kc + 1) * 32] = acc
+            ranks.append(block)
+        for block in ranks:
+            total = total + block
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("h,ci,co", GENERAL_SHAPES)
+def test_general_order_of_the_sums_gives_the_plain_sums(h, ci, co):
+    """The general kernel's order of s1 and s2, replayed in f32, gives
+    gn_act_bwd_folded's dbeta and dgamma of one sample."""
+    gs, slope = 16, 0.2
+    _, _, gamma, beta, g, yf, mu, rstd = _residuals(1, h, ci, co, gs, seed=h)
+    general, rt, _ = k1l.bwd_plan(h, h, ci, co, gs)
+    assert general
+    xn = (yf[0] - mu[0].repeat(4)) * rstd[0].repeat(4)
+    gf = k1l.fold(g)[0]
+    dout = torch.where(xn * gamma.repeat(4) + beta.repeat(4) >= 0, gf,
+                       slope * gf)
+    s1, s2 = _general_order_sums(dout, xn, rt)
+    _, dgamma, dbeta = k1l.gn_act_bwd_folded(g, yf, mu, rstd, gamma, beta,
+                                             slope=slope, group_size=gs)
+    torch.testing.assert_close(s1, dbeta, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(s2, dgamma, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("h,ci,co", GENERAL_SHAPES)
+def test_general_chunk_tiles_and_gather_replay_the_plain_dx(h, ci, co):
+    """Per chunk kc, rank r's tile holds the chunk's 4 x 32 channels of the
+    zero-padded dyf's rows r rt .. r rt + rt + 1 (halo rows computed by the
+    block itself: zeros only outside the sample); the GEMM's steps (kc,
+    parity), 4 taps each, reading the tile at (il + 2 - a - r, j + 2 - b -
+    s) and channels 32 parity .. + 32, give conv_rows_bwd_plain's dx."""
+    general, rt, _ = k1l.bwd_plan(h, h, ci, co, 16)
+    assert general
+    gen = torch.Generator().manual_seed(h + co)
+    dyf = torch.randn(h, h, 4 * co, generator=gen)
+    w = torch.randn(4, 4, ci, co, generator=gen) * 0.05
+    wpk = k1.pack_taps_dx(w).float()     # [Ci/32][parity][kc][tap][32][32]
+    padded = torch.nn.functional.pad(dyf, (0, 0, 1, 1, 1, 1))
+    kcn = co // 32
+    il = torch.arange(rt)[:, None].expand(rt, h)
+    j = torch.arange(h)[None, :].expand(rt, h)
+    dx = torch.zeros(h, h, ci)
+    for r in range(h // rt):
+        acc = torch.zeros(rt, h, ci)
+        for kc in range(kcn):
+            chans = torch.cat([torch.arange(p * co + kc * 32,
+                                            p * co + kc * 32 + 32)
+                               for p in range(4)])
+            tile = padded[r * rt:r * rt + rt + 2][:, :, chans]
+            assert tile.shape == (rt + 2, h + 2, 128)
+            for p in range(4):
+                pa, pb = divmod(p, 2)
+                for rr in (0, 1):
+                    for s in (0, 1):
+                        a = tile[il + 2 - pa - rr, j + 2 - pb - s,
+                                 p * 32:p * 32 + 32]
+                        wb = wpk[:, p, kc, 2 * rr + s].reshape(ci, 32)
+                        acc += a @ wb.t()
+        dx[r * rt:(r + 1) * rt] = acc
+    want = k1l.conv_rows_bwd_plain(dyf[None], w.to(torch.bfloat16).float())[0]
+    torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,ci,co", GENERAL_SHAPES)
+def test_wrapper_on_the_cpu_at_general_shapes_is_the_plain_chain(h, ci, co):
+    """At a shape only the general kernel takes, a CPU tensor still takes
+    the plain chain, whose dx, dyf, dgamma and dbeta have the kernel's
+    shapes and dtypes."""
+    x, w, gamma, beta, g, yf, mu, rstd = _residuals(1, h, ci, co, 16, seed=5)
+    got = k1l.upsample_rows_bwd(g, yf, mu, rstd, gamma, beta, w)
+    want = k1l.upsample_rows_bwd_plain(g, yf, mu, rstd, gamma, beta, w)
+    for a, r, shape in zip(got, want, [x.shape, yf.shape, (co,), (co,)]):
+        assert a.shape == shape and torch.equal(a, r)
