@@ -35,7 +35,7 @@ Needs one CUDA card (exits non-zero without one, and without the
    the ATen operations of one backward call: exactly dw's and the
    wrapper's) at gumbel_64 up3 and up2, the general K1L bwd kernel at two
    shapes the staged one does not take and at gumbel_64 up3 beside the
-   staged one, K2 core fwd / bwd on [64, 32768] and [64, 8192] f32, and K2
+   staged one (with the library chain's time), and K2
    fused (the critic trunk's forward and input gradient) at
    the 32x32 and 16x16 critics, with GroupNorm off and with group size 8
    (timed with its weight pack, as training calls it; the pack alone, its
@@ -45,6 +45,12 @@ Needs one CUDA card (exits non-zero without one, and without the
    times (CUDA events around calls queued behind a spin kernel,
    ``queued_ms``) and bounds; and the gradient-penalty implementations
    (plain, K2 core, fused) timed whole;
+   then K2 core fwd / bwd on [64, 32768], [64, 8192] and [64, 2048] f32
+   against their plain versions (forward twice, bit for bit; backward
+   also with a stride-0 cotangent), each with the launch floor of
+   ``queued_ms``, its L2-cold time, its plan and a sweep of the plans,
+   and the ATen operations and device kernels of one
+   ``NormPenalty.backward`` (only the kernel's output may be allocated);
 7. the training paths through ``levelgan_torch.cli.train`` (corpus cut to
    256 levels): gumbel_64 for 10 steps, wgan_gp_32 with
    ``model.pallas_gp=fused`` for 30 and wgan_gp_32_structural with it for
@@ -88,6 +94,7 @@ import types
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20      # H100 SXM L2 cache
 B = 1024                     # export batch
 N_LEVELS = 65536
 # bf16 tolerance of a stage output: 4 bf16 ulps relative plus 2^-6
@@ -283,21 +290,25 @@ def device_rows(prof):
                   key=dev_us, reverse=True)
 
 
-def queued_ms(fn, n: int = 20) -> float:
+def queued_ms(fn, n: int = 20, flush=None) -> float:
     """Device time of one call of ``fn``, for microsecond kernels where
     CUDA events around one call would time the host's launch overhead: a
     spin kernel holds the stream while the host queues ``n`` calls, and
     CUDA events time those calls back to back.  If the spin ended before
     the host had queued them all, the spin is doubled and the run
     repeated; after the last try the time is kept with a note (it then
-    includes some host time).  Device gaps between kernels are included,
-    and the result does not depend on torch.profiler's tracing."""
+    includes some host time).  Device gaps between kernels are included
+    (``launch_floor_ms`` is what that charges a kernel that does no work),
+    and the result does not depend on torch.profiler's tracing.
+    ``flush``, where given, is queued before each try's spin."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     cycles = SPIN_CYCLES
     for attempt in range(5):
+        if flush is not None:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -314,6 +325,26 @@ def queued_ms(fn, n: int = 20) -> float:
           f"not hidden behind a {cycles // 2} cycle spin; time includes "
           "host time")
     return start.elapsed_time(end) / n
+
+
+def launch_floor_ms() -> float:
+    """The least that ``queued_ms`` reads for any kernel: a one-cycle spin
+    (``torch.cuda._sleep(1)``) launched back to back."""
+    import torch
+    return queued_ms(lambda: torch.cuda._sleep(1))
+
+
+def cold_ms(fn, inputs, n: int = 20) -> float:
+    """``queued_ms`` of ``fn(*inputs)`` with its inputs in device memory,
+    not in L2: every call (warm-up included) takes its own copy of
+    ``inputs``, and twice L2's size is written over before the timed
+    calls."""
+    import itertools
+    import torch
+    copies = itertools.cycle([tuple(t.clone() for t in inputs)
+                              for _ in range(n + 3)])
+    scratch = torch.empty(2 * L2_BYTES // 4, device=inputs[0].device)
+    return queued_ms(lambda: fn(*next(copies)), n, flush=scratch.zero_)
 
 
 def profiled_ms(fn, n: int) -> float | None:
@@ -698,7 +729,6 @@ def train_kernel_parity(cfg, device, rows):
     bwd at a second shape (up2)."""
     import torch
     import torch.nn.functional as F
-    from levelgan_torch.kernels import gp_penalty as k2
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.kernels import upsample_rows as k1l
     from levelgan_torch.ops.blocks import upsample_block
@@ -844,28 +874,128 @@ def train_kernel_parity(cfg, device, rows):
                                                               s2_k)))
                     torch.cuda.empty_cache()
 
-    # K2 core on the critic's flattened input gradient [64, H * W * n_tiles]
+
+# K2 core's shapes: the critic's flattened input gradient [64, H * W *
+# n_tiles] at gumbel_64, at wgan_gp_32 and at the 16x16 presets (not yet on
+# a ported path)
+K2_CORE_SHAPES = (("gumbel_64", 64 * 64 * 8), ("wgan_gp_32", 32 * 32 * 8),
+                  ("16x16", 16 * 16 * 8))
+
+
+def sweep_ms(mod, attr, plans, fn) -> str:
+    """``fn`` timed (``queued_ms``) with ``mod.<attr>`` returning each of
+    ``plans`` ((label, plan) pairs) in turn."""
+    chosen = getattr(mod, attr)
+    out = []
+    try:
+        for label, plan in plans:
+            setattr(mod, attr, lambda *a, plan=plan: plan)
+            out.append(f"{label} {queued_ms(fn):.5f}")
+    finally:
+        setattr(mod, attr, chosen)
+    return ", ".join(out)
+
+
+def k2_core_rows(device, rows):
+    """K2 core fwd / bwd at ``K2_CORE_SHAPES`` (B = 64, f32), each against
+    its plain version by K2_TOL, two forward calls bit for bit, a stride-0
+    cotangent against a contiguous one, the times (``record``) with the
+    launch floor, the L2-cold time (``cold_ms``) and the plan beside them;
+    then one ``NormPenalty.backward`` as autograd calls it after the GP's
+    ``.mean()``: its ATen operations and device kernels.  Also runs
+    against a package whose wrapper has no plans (K2 core before its
+    redesign, to time both in one run), without the checks that need
+    them."""
+    import torch
+    from levelgan_torch.kernels import gp_penalty as k2
+    b, planned = B_TRAIN, hasattr(k2, "fwd_plan")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    floor = launch_floor_ms()
+    print(f"  launch floor of queued_ms (torch.cuda._sleep(1) back to back): "
+          f"{floor:.5f} ms")
     gen = torch.Generator(device).manual_seed(400)
-    m = cfg.model
-    f = m.level_size * m.level_size * m.n_tiles
-    g2 = torch.randn((b, f), generator=gen, device=device) * 0.01
-    ct = torch.randn((b,), generator=gen, device=device)
-    pen_k, norm_k = k2.norm_penalty_fwd(g2)
-    errs = errs_of(("pen", "norm"), (pen_k, norm_k),
-                   k2.norm_penalty_fwd_plain(g2), K2_TOL)
-    record(rows, name_cfg, "K2 core fwd", "gp", [b, f], errs,
-           lambda: k2.norm_penalty_fwd(g2),
-           lambda: k2.norm_penalty_fwd_plain(g2),
-           lambda: torch.linalg.vector_norm(g2, dim=1), 2.0 * b * f,
-           4.0 * b * f + 2 * 4 * b, PEAK_F32_FLOPS)
-    scale = (ct * 2.0 * (norm_k - 1.0) / norm_k)[:, None]
-    errs = errs_of(("dg",), (k2.norm_penalty_bwd(g2, norm_k, ct),),
-                   (k2.norm_penalty_bwd_plain(g2, norm_k, ct),), K2_TOL)
-    record(rows, name_cfg, "K2 core bwd", "gp", [b, f], errs,
-           lambda: k2.norm_penalty_bwd(g2, norm_k, ct),
-           lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
-           lambda: torch.mul(g2, scale), 1.0 * b * f, 8.0 * b * f + 3 * 4 * b,
-           PEAK_F32_FLOPS)
+    for config, f in K2_CORE_SHAPES:
+        g2 = torch.randn((b, f), generator=gen, device=device) * 0.01
+        ct = torch.randn((b,), generator=gen, device=device)
+        pen_k, norm_k = k2.norm_penalty_fwd(g2)
+        pen_2, norm_2 = k2.norm_penalty_fwd(g2)
+        if not (torch.equal(pen_k, pen_2) and torch.equal(norm_k, norm_2)):
+            fail(f"K2 core fwd at [{b}, {f}]: two calls differ")
+        errs = errs_of(("pen", "norm"), (pen_k, norm_k),
+                       k2.norm_penalty_fwd_plain(g2), K2_TOL)
+        record(rows, config, "K2 core fwd", "gp", [b, f], errs,
+               lambda: k2.norm_penalty_fwd(g2),
+               lambda: k2.norm_penalty_fwd_plain(g2),
+               lambda: torch.linalg.vector_norm(g2, dim=1), 2.0 * b * f,
+               4.0 * b * f + 2 * 4 * b, PEAK_F32_FLOPS)
+        plan = (str(k2.fwd_plan(b, f, n_sm)) if planned
+                else "none (one block of 512 threads a sample)")
+        rows[-1].update(floor_ms=floor, plan=plan,
+                        cold_ms=cold_ms(k2.norm_penalty_fwd, (g2,)))
+        print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
+              f"ms; two calls bit-identical; plan {plan}")
+        if planned:
+            print("    by cluster size k (ms): " + sweep_ms(
+                k2, "fwd_plan", [(k, k2.fwd_plan(b, f, n_sm, k=k))
+                                 for k in k2.FWD_CLUSTERS],
+                lambda: k2.norm_penalty_fwd(g2)))
+        scale = (ct * 2.0 * (norm_k - 1.0) / norm_k)[:, None]
+        errs = errs_of(("dg",), (k2.norm_penalty_bwd(g2, norm_k, ct),),
+                       (k2.norm_penalty_bwd_plain(g2, norm_k, ct),), K2_TOL)
+        record(rows, config, "K2 core bwd", "gp", [b, f], errs,
+               lambda: k2.norm_penalty_bwd(g2, norm_k, ct),
+               lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
+               lambda: torch.mul(g2, scale), 1.0 * b * f,
+               8.0 * b * f + 3 * 4 * b, PEAK_F32_FLOPS)
+        plan = (str(k2.bwd_plan(b, f, n_sm)) if planned
+                else "none ((ceil(F / 4096), B) blocks of 256 threads)")
+        rows[-1].update(floor_ms=floor, plan=plan, cold_ms=cold_ms(
+            k2.norm_penalty_bwd, (g2, norm_k, ct)))
+        print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
+              f"ms; plan {plan}")
+        if planned:
+            print("    by float4s a block (ms): " + sweep_ms(
+                k2, "bwd_plan", [(per, k2.bwd_plan(b, f, n_sm, per=per))
+                                 for per in (1024, 512, 256, 128)],
+                lambda: k2.norm_penalty_bwd(g2, norm_k, ct)))
+            ct0 = ct[:1].expand(b)
+            if not torch.equal(k2.norm_penalty_bwd(g2, norm_k, ct0),
+                               k2.norm_penalty_bwd(g2, norm_k,
+                                                   ct0.contiguous())):
+                fail(f"K2 core bwd at [{b}, {f}]: a stride-0 cotangent gives "
+                     "another dg than a contiguous one")
+    if planned:
+        # where the plan splits a row: small batches at the widest row
+        for bs in (3, 16):
+            g2s = torch.randn((bs, K2_CORE_SHAPES[0][1]), generator=gen,
+                              device=device)
+            print(f"  K2 core fwd [{bs}, {g2s.shape[1]}], plan "
+                  f"{k2.fwd_plan(bs, g2s.shape[1], n_sm)}, by cluster size k "
+                  "(ms): " + sweep_ms(
+                      k2, "fwd_plan",
+                      [(k, k2.fwd_plan(bs, g2s.shape[1], n_sm, k=k))
+                       for k in k2.FWD_CLUSTERS],
+                      lambda: k2.norm_penalty_fwd(g2s)))
+    # one NormPenalty.backward with the cotangent autograd hands it from
+    # the GP's .mean() (the last shape's g2)
+    x = g2.clone().requires_grad_()
+    pen = k2.NormPenalty.apply(x)
+    (ct,) = torch.autograd.grad(pen.mean(), pen)
+    ctx = types.SimpleNamespace(saved_tensors=(g2, k2.norm_penalty_fwd(g2)[1]))
+
+    def backward():
+        return k2.NormPenalty.backward(ctx, ct)
+
+    ops = aten_ops(backward)
+    names = kernel_names(backward)
+    print(f"  NormPenalty.backward after .mean(): cotangent of stride "
+          f"{ct.stride()}; ATen operations {dict(ops)}; device kernels "
+          + ("not recorded by the profiler" if names is None else
+             "; ".join(f"x{n} {k[:60]}" for k, n in names.items())))
+    if planned and (ops != collections.Counter({"aten.empty_like.default": 1})
+                    or (names is not None and sum(names.values()) != 1)):
+        fail("NormPenalty.backward ran more than the K2 core bwd kernel and "
+             "its output's allocation")
 
 
 def placement_line(t, w, fn, offsets_mib=(0, 1, 2, 3),
@@ -1065,8 +1195,8 @@ def k1l_bwd_general(cfg, device):
     inputs from the stage kernel with residuals; at a shape the staged
     kernel takes, the plan is set to the general one for this check): dx,
     dyf, dgamma and dbeta against the plain chain by SUM_TOL, two calls bit
-    for bit, and its time beside the plain chain's and its bound
-    (``queued_ms``)."""
+    for bit, and its time beside the plain chain's, the library chain's
+    (``library_stage_bwd``) and its bound (``queued_ms``)."""
     import torch
     from levelgan_torch.kernels import upsample_rows as k1l
     gs, slope, b = cfg.model.group_size, cfg.model.leaky_slope, B_TRAIN
@@ -1103,6 +1233,9 @@ def k1l_bwd_general(cfg, device):
         torch.cuda.synchronize()
         bad = {k: v for k, v in errs.items() if v[1] > v[2]}
         t_p = queued_ms(plain)
+        t_l = queued_ms(library_stage_bwd(
+            x, w.permute(2, 3, 0, 1).flip(2, 3).to(torch.bfloat16)
+            .contiguous(), gamma, beta, g, gs, slope))
         b_ms, b_by = bound_ms(32.0 * b * h * h * ci * co,
                               3 * yf.numel() * 2 + b * h * h * ci * 2
                               + 16 * ci * co * 2 + 2 * b * co * 4 + 4 * co * 4)
@@ -1114,7 +1247,8 @@ def k1l_bwd_general(cfg, device):
               + " ".join(f"{k} abs {v[0]:.4g} rel {v[1]:.3g} (tol {v[2]:.3g})"
                          for k, v in errs.items())
               + f"; two calls bit-identical: {same}; ms={t_k:.5f} "
-              f"plain_ms={t_p:.5f} bound_ms={b_ms:.5f} ({b_by})"
+              f"plain_ms={t_p:.5f} library_ms={t_l:.5f} bound_ms={b_ms:.5f} "
+              f"({b_by})"
               + (f"; the staged kernel the wrapper runs here {t_staged:.5f}"
                  if staged else ""))
         if bad or not same:
@@ -1708,11 +1842,13 @@ def profile_train(state, step_fn, corpus, cfg, steps=3):
     busy_ms = sum(dev_us(e) for e in rows) / 1e3 / steps
     ours_ms = sum(dev_us(e) for e in rows
                   if any(o in e.key for o in OURS)) / 1e3 / steps
+    k2_ms = sum(dev_us(e) for e in rows
+                if "norm_penalty_" in e.key) / 1e3 / steps
     print(f"  per step (profiled, {steps} steps): wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the port's kernels "
-          f"{ours_ms:.3f} ms of device time; {sum(e.count for e in rows) // steps} "
-          "device ops per step")
+          f"{ours_ms:.3f} ms of device time, of which K2 core {k2_ms:.4f}; "
+          f"{sum(e.count for e in rows) // steps} device ops per step")
     for e in rows[:15]:
         print(f"    {dev_us(e) / 1e3 / steps:8.3f} ms  x{e.count // steps:<4d}"
               f" {e.key[:90]}")
@@ -1809,7 +1945,7 @@ def kernels_line(records, counts, train_records, train_counts):
 
 
 PHASES = ("build", "parity", "export", "export_profile", "train_parity",
-          "train", "train_check", "train_profile", "repro")
+          "k2_core", "train", "train_check", "train_profile", "repro")
 
 
 def main(argv=()) -> int:
@@ -1892,6 +2028,9 @@ def main(argv=()) -> int:
             fused_kernel_parity(device, train_records)
             for c in (cfg, cfg32):
                 time_gradient_penalties(c, device)
+        if phase("k2_core"):
+            print(f"K2 core parity and timing (B={B_TRAIN}, f32):")
+            k2_core_rows(device, train_records)
         if phase("train"):
             for name, overrides, steps in TRAIN_RUNS:
                 print(f"training path: levelgan_torch.cli.train --preset "

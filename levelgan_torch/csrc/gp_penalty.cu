@@ -7,21 +7,58 @@
 //   backward: dg[b, f] = ct_b * 2 (norm_b - 1) / norm_b * g[b, f]
 //
 // g2 is the critic's per-sample input gradient, flattened to [B, F] f32
-// (F = 64 * 64 * 8 = 32768 at gumbel_64).  The TPU kernel tiles the batch
-// to fit VMEM; on the card the forward is one block per sample (a row
-// reduction: float4 loads, f32 sums in a fixed order, a warp-shuffle
-// tree), the backward a float4 scaled copy over a (chunk, sample) grid.
-// What bounds both on an H100: the bytes (8.4 MB read forward; 8.4 MB read
-// and 8.4 MB written backward, at B = 64), i.e. ~2.5 and ~5 us at
-// 3.35 TB/s; at that size the launch itself is of the same order.
+// (F = 64 * 64 * 8 = 32768 at gumbel_64, 8192 at wgan_gp_32, 2048 at the
+// 16x16 presets; B = 64).  The TPU kernel tiles the batch to fit VMEM.
+//
+// What bounds them on an H100.  Both move bytes and do next to no
+// arithmetic: 8.4 MB read forward, 8.4 MB read and 8.4 MB written
+// backward at [64, 32768] (2.5 and 5.0 us at 3.35 TB/s), a quarter and a
+// sixteenth of that at the smaller widths.  In the training step g2 has
+// just been written by the kernel before, so it sits in the 50 MB L2.  At
+// these sizes the launch is most of the time: 20 launches of a one-cycle
+// kernel back to back read 0.0020-0.0022 ms each (the floor of chip_smoke's
+// queued_ms), against 0.0024-0.0050 ms for these kernels.  So the design
+// puts all of a block's bytes in flight at once and adds as little as it
+// can to the launch.
+//
+// Forward.  A sample's row is split over a cluster of k blocks (k in
+// {1, 2, 4, 8}, kernels/gp_penalty.py:fwd_plan).  Rank r of the cluster
+// reads the float4s [r * s4, (r + 1) * s4) of the row; thread t of T loads
+// the float4s r * s4 + j * T + t for j = 0 .. V - 1, all V loads issued
+// before the first sum (V is a template parameter).  The sums run in a
+// fixed order: each thread in four chains (x, y, z, w) over its float4s in
+// j order, then (x + y) + (z + w); a warp-shuffle butterfly; the warps'
+// partials by a second butterfly in warp 0; then the ranks in order at
+// rank 0, which gets the other ranks' partials by st.async onto its
+// mbarrier.  No atomics: two calls give the same bits.  The mbarrier is
+// set up behind a cluster barrier before the loads are issued: a cluster
+// barrier's wait acquires (the compiler adds an L1 invalidation), which
+// costs least while L1 holds nothing.  Even so the exchange costs about
+// what halving a block's slice saves (chip_smoke's K2 core sweep), so
+// fwd_plan splits a row only where that cuts the slice at least four-fold
+// with one block an SM: at small batches.  At B = 64, the main path, the
+// forward is one block a sample (k = 1, no cluster).
+//
+// Backward.  A scaled copy over a (chunk, sample) grid that gives every SM
+// a block where the batch allows (kernels/gp_penalty.py:bwd_plan).  A
+// thread issues its 4 16-byte loads, then computes the sample's scale from
+// two broadcast loads while they are in flight, then stores 4 float4s.
+// The cotangent is read with its stride: the broadcast of a scalar
+// (stride 0) needs no copy.  Plain stores: dg goes straight into the
+// critic's double backward, which reads it from L2.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "stage_common.cuh"
 
 namespace {
 
-constexpr int FWD_THREADS = 512;
-constexpr int BWD_THREADS = 256;
 constexpr float EPS = 1e-12f;
+constexpr int FWD_MAX_THREADS = 512;
+constexpr int BWD_MAX_THREADS = 256;
+constexpr int BWD_VEC = 4;            // float4 loads a backward thread
+constexpr int MAX_CLUSTER = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -29,76 +66,208 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(FWD_THREADS)
-norm_penalty_fwd_kernel(const float* __restrict__ g, float* __restrict__ pen,
-                        float* __restrict__ norm, int F) {
-  __shared__ float red[FWD_THREADS / 32];
-  const int b = blockIdx.x;
-  const float4* row =
-      reinterpret_cast<const float4*>(g + static_cast<size_t>(b) * F);
-  const int n4 = F / 4;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n4; i += FWD_THREADS) {
-    const float4 v = row[i];
-    s += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-  }
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    s = threadIdx.x < FWD_THREADS / 32 ? red[threadIdx.x] : 0.f;
-    s = warp_sum(s);
-    if (threadIdx.x == 0) {
-      const float nrm = sqrtf(s + EPS);
-      norm[b] = nrm;
-      pen[b] = (nrm - 1.f) * (nrm - 1.f);
-    }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A launch's arguments: the row length n4 and the slice of a block (s4,
+// p4) in float4s; the forward's cluster size is 1 << lk.
+struct FwdArgs {
+  const float4* g;
+  float* pen;
+  float* norm;
+  int n4, s4, lk;
+};
+
+struct BwdArgs {
+  const float4* g;
+  const float* norm;
+  const float* ct;
+  long long ct_stride;
+  float4* dg;
+  int n4, p4;
+};
+
+// A thread's V float4s p[0], p[stride], ..., all issued before any is
+// used; those at or past `left` float4s are zeros, unless the block's slice
+// is `full` (the common case: no test on the loads).
+template <int V>
+__device__ __forceinline__ void load_slice(float4 (&v)[V], const float4* p,
+                                           int stride, int left, bool full) {
+  if (full) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = __ldg(p + j * stride);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      v[j] = j * stride < left ? __ldg(p + j * stride)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-__global__ void __launch_bounds__(BWD_THREADS)
-norm_penalty_bwd_kernel(const float* __restrict__ g,
-                        const float* __restrict__ norm,
-                        const float* __restrict__ ct, float* __restrict__ dg,
-                        int F) {
-  const int b = blockIdx.y;
-  const float nrm = norm[b];
-  const float scale = ct[b] * 2.f * (nrm - 1.f) / nrm;
-  const size_t off = static_cast<size_t>(b) * F;
-  const float4* src = reinterpret_cast<const float4*>(g + off);
-  float4* dst = reinterpret_cast<float4*>(dg + off);
-  const int n4 = F / 4;
-  for (int i = blockIdx.x * BWD_THREADS + threadIdx.x; i < n4;
-       i += gridDim.x * BWD_THREADS) {
-    const float4 v = src[i];
-    dst[i] = make_float4(scale * v.x, scale * v.y, scale * v.z, scale * v.w);
+template <int V>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+norm_penalty_fwd_kernel(const FwdArgs a) {
+  __shared__ float red[FWD_MAX_THREADS / 32];
+  __shared__ float2 parts[MAX_CLUSTER];
+  __shared__ uint64_t bar;
+  // a one-dimensional cluster of k blocks: its rank r is blockIdx.x % k
+  const int k = 1 << a.lk, rank = blockIdx.x & (k - 1);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int b = blockIdx.x >> a.lk;
+  const uint32_t sbar = smem_addr(&bar);
+  if (k > 1) {
+    // rank 0 expects the other ranks' partials (8 bytes each) on its
+    // mbarrier, set up before any rank can push: the fence publishes the
+    // set-up to the cluster, the (relaxed) barrier orders it before the
+    // pushes.  Done before the loads are issued: a cluster barrier's wait
+    // acquires, which costs far more once the loads have filled L1.
+    if (rank == 0 && tid == 0) {
+      lgt::mbar_init(sbar, 1);
+      lgt::mbar_expect_tx(sbar, 8 * (k - 1));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   }
+  const int lo = rank * a.s4, len = min(a.s4, a.n4 - lo);
+  const float4* p = a.g + static_cast<size_t>(b) * a.n4 + lo + tid;
+  float4 v[V];
+  load_slice<V>(v, p, nthr, len - tid, V * nthr <= len);
+  // four independent chains (the x, y, z and w of the float4s, in j
+  // order), then (x + y) + (z + w)
+  float sx = 0.f, sy = 0.f, sz = 0.f, sw = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    sx = fmaf(v[j].x, v[j].x, sx);
+    sy = fmaf(v[j].y, v[j].y, sy);
+    sz = fmaf(v[j].z, v[j].z, sz);
+    sw = fmaf(v[j].w, v[j].w, sw);
+  }
+  float s = warp_sum((sx + sy) + (sz + sw));
+  if ((tid & 31) == 0) red[tid >> 5] = s;
+  __syncthreads();
+  if (tid < 32) s = warp_sum(tid < nthr / 32 ? red[tid] : 0.f);
+  if (k > 1 && tid == 0) {
+    if (rank != 0) {
+      lgt::st_async8(lgt::map_rank(smem_addr(&parts[rank]), 0), s, 0.f,
+                     lgt::map_rank(sbar, 0));
+    } else {
+      lgt::mbar_wait_cluster(sbar, 0);
+      for (int r = 1; r < k; ++r) s += parts[r].x;
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    const float nrm = sqrtf(s + EPS);
+    a.norm[b] = nrm;
+    a.pen[b] = (nrm - 1.f) * (nrm - 1.f);
+  }
+}
+
+__global__ void __launch_bounds__(BWD_MAX_THREADS)
+norm_penalty_bwd_kernel(const BwdArgs a) {
+  constexpr int U = BWD_VEC;
+  const int b = blockIdx.y, tid = threadIdx.x, nthr = blockDim.x;
+  const size_t off = static_cast<size_t>(b) * a.n4;
+  const int lo = blockIdx.x * a.p4, len = min(a.p4, a.n4 - lo);
+  const bool full = U * nthr <= len;
+  const float4* p = a.g + off + lo + tid;
+  float4 v[U];
+  load_slice<U>(v, p, nthr, len - tid, full);
+  const float nrm = a.norm[b];
+  const float scale = a.ct[b * a.ct_stride] * 2.f * (nrm - 1.f) / nrm;
+  float4* q = a.dg + off + lo + tid;
+#pragma unroll
+  for (int j = 0; j < U; ++j)
+    if (full || j * nthr < len - tid)
+      q[j * nthr] = make_float4(scale * v[j].x, scale * v[j].y,
+                                scale * v[j].z, scale * v[j].w);
+}
+
+// An error of a set-up call is not sticky, but it stays the runtime's last
+// error: clear it, or the next launch's cudaGetLastError reports it.
+int failed(cudaError_t err) {
+  cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+template <int V>
+cudaError_t launch_fwd(int B, int k, int threads, cudaStream_t stream,
+                       const FwdArgs& a) {
+  if (k == 1) {
+    norm_penalty_fwd_kernel<V><<<B, threads, 0, stream>>>(a);
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = k;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * k);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, norm_penalty_fwd_kernel<V>, a);
+}
+
+bool valid_threads(int threads, int most) {
+  return threads >= 32 && threads <= most && threads % 32 == 0;
 }
 
 }  // namespace
 
-// g2 [B,F] f32 -> pen, norm [B] f32.  The caller checks F % 4 == 0 and
-// contiguity.  Returns cudaGetLastError().
+// g2 [B,F] f32 -> pen, norm [B] f32, by the plan (k, threads, vec) of
+// kernels/gp_penalty.py:fwd_plan: clusters of k blocks a sample, each of
+// `threads` threads issuing `vec` 16-byte loads.  The caller checks F % 4
+// == 0, contiguity and 16-byte alignment.  A plan that does not cover the
+// row, or a refused launch, returns its error without launching.
 extern "C" int norm_penalty_fwd(const void* g2, void* pen, void* norm, int B,
-                                int F, void* stream) {
-  norm_penalty_fwd_kernel<<<B, FWD_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g2), static_cast<float*>(pen),
-      static_cast<float*>(norm), F);
+                                int F, int k, int threads, int vec,
+                                void* stream) {
+  const int n4 = F / 4, s4 = (n4 + k - 1) / k;
+  const int lk = k == 8 ? 3 : k == 4 ? 2 : k == 2 ? 1 : 0;
+  if (B < 1 || F % 4 || !(k == 1 || k == 2 || k == 4 || k == 8) ||
+      !valid_threads(threads, FWD_MAX_THREADS) ||
+      static_cast<long long>(vec) * threads < s4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{static_cast<const float4*>(g2), static_cast<float*>(pen),
+                  static_cast<float*>(norm), n4, s4, lk};
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (vec) {
+    case 1: err = launch_fwd<1>(B, k, threads, st, a); break;
+    case 2: err = launch_fwd<2>(B, k, threads, st, a); break;
+    case 4: err = launch_fwd<4>(B, k, threads, st, a); break;
+    case 8: err = launch_fwd<8>(B, k, threads, st, a); break;
+    case 16: err = launch_fwd<16>(B, k, threads, st, a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return failed(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// g2 [B,F], norm [B], ct [B] f32 -> dg [B,F] f32.  Returns
-// cudaGetLastError().
+// g2 [B,F], norm [B] f32, ct f32 with element stride ct_stride (0 for a
+// broadcast scalar) -> dg [B,F] f32, by the plan (chunks, threads) of
+// kernels/gp_penalty.py:bwd_plan: `chunks` blocks a sample, each of
+// `threads` threads issuing BWD_VEC 16-byte loads.  The caller checks
+// shapes, contiguity and 16-byte alignment.  A plan that does not cover the
+// row returns cudaErrorInvalidValue without launching.
 extern "C" int norm_penalty_bwd(const void* g2, const void* norm,
-                                const void* ct, void* dg, int B, int F,
+                                const void* ct, long long ct_stride, void* dg,
+                                int B, int F, int chunks, int threads,
                                 void* stream) {
-  const int n4 = F / 4;
-  int chunks = (n4 + 4 * BWD_THREADS - 1) / (4 * BWD_THREADS);
-  if (chunks < 1) chunks = 1;
-  norm_penalty_bwd_kernel<<<dim3(chunks, B), BWD_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g2), static_cast<const float*>(norm),
-      static_cast<const float*>(ct), static_cast<float*>(dg), F);
+  const int n4 = F / 4, p4 = BWD_VEC * threads;
+  if (B < 1 || B > 65535 || F % 4 || chunks < 1 ||
+      !valid_threads(threads, BWD_MAX_THREADS) ||
+      static_cast<long long>(p4) * chunks < n4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{static_cast<const float4*>(g2),
+                  static_cast<const float*>(norm),
+                  static_cast<const float*>(ct), ct_stride,
+                  static_cast<float4*>(dg), n4, p4};
+  norm_penalty_bwd_kernel<<<dim3(chunks, B), threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

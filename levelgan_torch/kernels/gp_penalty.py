@@ -15,12 +15,23 @@ has to flow into the ``create_graph`` inner gradient, which the outer
 backward then walks to the critic's parameters; nothing differentiates the
 penalty's backward again.
 
-Design.  The TPU kernel tiles the batch to fit VMEM.  On the card the
-forward is one block per sample (a row reduction over 32,768 f32 at
-gumbel_64: float4 loads, a fixed-order f32 sum and a warp-shuffle tree,
-so the result is deterministic), the backward a float4 scaled copy.  What
-bounds them on an H100 at B = 64: the bytes, 8.4 MB read (~2.5 us) and
-8.4 MB read + 8.4 MB written (~5 us); the launch is of the same order.
+Design (in full: the note at the head of ``csrc/gp_penalty.cu``).  The
+TPU kernel tiles the batch to fit VMEM.  On the card both kernels move
+bytes and do next to no arithmetic, and at B = 64 the launch is most of
+their time: chip_smoke's ``queued_ms`` reads 0.0020-0.0022 ms for a
+one-cycle kernel on an H100.  The forward issues all of a block's 16-byte
+loads at once and sums in a fixed order (each thread in load order, a
+warp-shuffle butterfly, the warps by a second one, and where ``fwd_plan``
+splits a row over a thread-block cluster, the ranks in order at rank 0
+through distributed shared memory), so two calls give the same bits.  The
+cluster's exchange costs about what halving a block's slice saves, so the
+plan splits rows only at small batches; at B = 64 it is one block a
+sample.  The backward is a scaled copy over a grid that gives every SM a
+block where the batch allows (``bwd_plan``), each thread's loads issued
+before its stores; it reads the cotangent with its stride, so a broadcast
+cotangent (stride 0, as ``.sum()``'s backward gives) needs no copy.  The
+plans are plain Python, passed to the C functions as they are, so a CPU
+test replays exactly what is launched (``tests/test_torch_k2_core.py``).
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
@@ -29,6 +40,8 @@ launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,17 +54,89 @@ EPS = 1e-12
 fwd_launches = 0      # forward kernel launches since the last reset
 bwd_launches = 0      # backward kernel launches since the last reset
 
+FWD_CLUSTERS = (1, 2, 4, 8)   # blocks a sample the forward may take
+FWD_VECS = (1, 2, 4, 8, 16)   # float4 loads a thread, compiled forward
+FWD_MAX_THREADS = 512         # the kernels' launch bounds
+BWD_MAX_THREADS = 256
+BWD_VEC = 4                   # float4 loads a backward thread
+# A forward cluster costs its exchange, ~0.3 us on an H100 (chip_smoke's
+# K2 core sweep): it pays only where it cuts a block's slice at least
+# MIN_SPLIT-fold, to no less than MIN_SLICE float4s (32 KB), with one
+# block an SM.  At B = 64 no width qualifies: the main path runs k = 1.
+MIN_SPLIT = 4
+MIN_SLICE = 2048
+# static shared memory of a forward block: the warps' partials, the
+# cluster ranks' partials (float2 each) and the mbarrier
+FWD_SMEM = 4 * FWD_MAX_THREADS // 32 + 8 * 8 + 8
+
+
+class FwdPlan(NamedTuple):
+    k: int          # blocks (one cluster) a sample
+    threads: int    # threads a block
+    vec: int        # float4 loads a thread, all issued before its first sum
+    smem: int       # shared memory a block, bytes
+
+
+class BwdPlan(NamedTuple):
+    chunks: int     # blocks a sample
+    threads: int    # threads a block, each with BWD_VEC float4s
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def fwd_plan(b: int, f: int, n_sm: int, k: int | None = None) -> FwdPlan:
+    """The forward's launch for g2 [b, f] on a card of ``n_sm`` SMs: the
+    largest cluster size k >= ``MIN_SPLIT`` for which the b * k blocks take
+    one SM each and every block reads ``MIN_SLICE`` float4s or more, else 1
+    (or ``k`` as given); then threads for about 4 loads each, and the loads
+    a thread needs (a power of two).  Rank r of a sample's cluster reads
+    the float4s [r * s4, (r + 1) * s4) of its row, s4 = ceil(f / 4 / k);
+    its thread t the float4s r * s4 + j * threads + t, j < vec."""
+    n4 = f // 4
+    if k is None:
+        k = max(c for c in FWD_CLUSTERS if c == 1 or (
+            c >= MIN_SPLIT and b * c <= n_sm and n4 // c >= MIN_SLICE))
+    s4 = -(-n4 // k)
+    threads = min(FWD_MAX_THREADS, max(32, _pow2ceil(-(-s4 // 4))))
+    vec = _pow2ceil(-(-s4 // threads))
+    if k not in FWD_CLUSTERS or vec not in FWD_VECS:
+        raise ValueError(f"K2 core fwd: a row of g2 [{b}, {f}] needs {vec} "
+                         f"loads a thread of {threads} in a cluster of {k} "
+                         f"(at most {FWD_VECS[-1]}, clusters {FWD_CLUSTERS})")
+    return FwdPlan(k, threads, vec, FWD_SMEM)
+
+
+def bwd_plan(b: int, f: int, n_sm: int, per: int | None = None) -> BwdPlan:
+    """The backward's launch for g2 [b, f]: blocks of 1024 float4s (256
+    threads), halved down to 128 (32 threads) until the (chunk, sample)
+    grid gives each of the ``n_sm`` SMs a block (or ``per`` float4s a block
+    as given, a power of two from 128 to 1024).  Chunk c of a sample covers
+    the float4s [c * p4, (c + 1) * p4) of its row, p4 = threads * BWD_VEC;
+    its thread t the float4s c * p4 + j * threads + t, j < BWD_VEC."""
+    if not 1 <= b <= 65535:
+        raise ValueError(f"K2 core bwd: g2 [{b}, {f}] has a batch outside "
+                         "1..65535 (the grid's second dimension)")
+    n4 = f // 4
+    if per is None:
+        per = BWD_MAX_THREADS * BWD_VEC
+        while per > 32 * BWD_VEC and b * -(-n4 // per) < n_sm:
+            per //= 2
+    return BwdPlan(-(-n4 // per), per // BWD_VEC)
+
 
 def _lib():
     lib = build.load("gp_penalty")
     fn = lib.norm_penalty_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bwd = lib.norm_penalty_bwd
-        bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
+        bwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                  ctypes.c_void_p]
+                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
     return lib
 
@@ -66,31 +151,45 @@ def norm_penalty_bwd_plain(g2: torch.Tensor, norm: torch.Tensor,
     return ((ct * 2.0 * (norm - 1.0) / norm)[:, None] * g2).to(g2.dtype)
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if (t.dtype != torch.float32 or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape) or t.device != device):
-        raise ValueError(f"K2 core {name} must be contiguous f32 {tuple(shape)}"
-                         f" on {device}, got {tuple(t.shape)} {t.dtype} "
-                         f"on {t.device}")
+def _check(name: str, t: torch.Tensor, shape, device, contiguous=True):
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or t.device != device or (contiguous and not t.is_contiguous())):
+        raise ValueError(f"K2 core {name} must be "
+                         + ("contiguous " if contiguous else "")
+                         + f"f32 {tuple(shape)} on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_g2(g2: torch.Tensor):
+    if g2.device.type != "cuda":
+        raise ValueError(f"K2 core runs on CUDA tensors, got {g2.device}")
+    b, f = g2.shape
+    _check("g2", g2, (b, f), g2.device)
+    if f % 4 or g2.data_ptr() % 16:
+        raise ValueError(f"K2 core needs F % 4 == 0 and g2 16-byte aligned, "
+                         f"got F={f} at {g2.data_ptr() % 16} bytes past")
+    return b, f
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def norm_penalty_fwd(g2: torch.Tensor):
     """g2 [B, F] f32 -> (pen [B], norm [B]) f32."""
     if g2.device.type == "cpu":
         return norm_penalty_fwd_plain(g2)
-    if g2.device.type != "cuda":
-        raise ValueError(f"K2 core runs on CUDA tensors, got {g2.device}")
-    b, f = g2.shape
-    _check("g2", g2, (b, f), g2.device)
-    if f % 4:
-        raise ValueError(f"K2 core needs F % 4 == 0, got F={f}")
+    b, f = _check_g2(g2)
+    plan = fwd_plan(b, f, _n_sm(g2.device))
     pen = torch.empty((b,), dtype=torch.float32, device=g2.device)
     norm = torch.empty_like(pen)
     with torch.cuda.device(g2.device):
         err = _lib().norm_penalty_fwd(build.ptr(g2), build.ptr(pen),
-                                      build.ptr(norm), b, f,
+                                      build.ptr(norm), b, f, plan.k,
+                                      plan.threads, plan.vec,
                                       build.stream_ptr(g2.device))
-    build.check(err, "norm_penalty_fwd")
+    build.check(err, f"norm_penalty_fwd at [{b}, {f}] by {plan}")
     global fwd_launches
     fwd_launches += 1
     return pen, norm
@@ -98,23 +197,22 @@ def norm_penalty_fwd(g2: torch.Tensor):
 
 def norm_penalty_bwd(g2: torch.Tensor, norm: torch.Tensor,
                      ct: torch.Tensor) -> torch.Tensor:
-    """g2 [B, F], norm [B], ct [B] (cotangent of pen) -> dg [B, F] f32."""
+    """g2 [B, F], norm [B], ct [B] (cotangent of pen, any stride) -> dg
+    [B, F] f32."""
     if g2.device.type == "cpu":
         return norm_penalty_bwd_plain(g2, norm, ct)
-    if g2.device.type != "cuda":
-        raise ValueError(f"K2 core runs on CUDA tensors, got {g2.device}")
-    b, f = g2.shape
-    _check("g2", g2, (b, f), g2.device)
+    b, f = _check_g2(g2)
     _check("norm", norm, (b,), g2.device)
-    _check("ct", ct, (b,), g2.device)
-    if f % 4:
-        raise ValueError(f"K2 core needs F % 4 == 0, got F={f}")
+    _check("ct", ct, (b,), g2.device, contiguous=False)
+    plan = bwd_plan(b, f, _n_sm(g2.device))
     dg = torch.empty_like(g2)
     with torch.cuda.device(g2.device):
         err = _lib().norm_penalty_bwd(build.ptr(g2), build.ptr(norm),
-                                      build.ptr(ct), build.ptr(dg), b, f,
+                                      build.ptr(ct), ct.stride(0),
+                                      build.ptr(dg), b, f, plan.chunks,
+                                      plan.threads,
                                       build.stream_ptr(g2.device))
-    build.check(err, "norm_penalty_bwd")
+    build.check(err, f"norm_penalty_bwd at [{b}, {f}] by {plan}")
     global bwd_launches
     bwd_launches += 1
     return dg
@@ -134,7 +232,7 @@ class NormPenalty(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, ct):
         g2, norm = ctx.saved_tensors
-        return norm_penalty_bwd(g2, norm, ct.contiguous())
+        return norm_penalty_bwd(g2, norm, ct)
 
 
 def gradient_penalty_core(critic, real: torch.Tensor, fake: torch.Tensor,

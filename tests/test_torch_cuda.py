@@ -142,10 +142,17 @@ def test_k1l_bwd_matches_plain(cuda, b, h, ci, co):
     _assert_k1l_bwd_matches_plain(_k1l_bwd_inputs(b, h, ci, co, cuda, 3))
 
 
-def test_norm_penalty_matches_plain(cuda):
+# K2 core's widths: the flattened input gradient at gumbel_64, wgan_gp_32
+# and the 16x16 presets
+K2_WIDTHS = (64 * 64 * 8, 32 * 32 * 8, 16 * 16 * 8)
+
+
+@pytest.mark.parametrize("f", K2_WIDTHS)
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_norm_penalty_matches_plain(cuda, b, f):
     from levelgan_torch.kernels import gp_penalty as k2
-    g2 = torch.randn((64, 64 * 64 * 8), device=cuda) * 0.01
-    ct = torch.randn(64, device=cuda)
+    g2 = torch.randn((b, f), device=cuda) * 0.01
+    ct = torch.randn(b, device=cuda)
     pen, norm = k2.norm_penalty_fwd(g2)
     pen_p, norm_p = k2.norm_penalty_fwd_plain(g2)
     torch.testing.assert_close(norm, norm_p, atol=0, rtol=1e-5)
@@ -153,6 +160,65 @@ def test_norm_penalty_matches_plain(cuda):
     torch.testing.assert_close(k2.norm_penalty_bwd(g2, norm, ct),
                                k2.norm_penalty_bwd_plain(g2, norm_p, ct),
                                atol=1e-7, rtol=1e-5)
+
+
+@pytest.mark.parametrize("f", K2_WIDTHS)
+@pytest.mark.parametrize("b", [3, 64])
+def test_norm_penalty_fwd_is_bit_reproducible(cuda, b, f):
+    """At B = 3 and F = 32768 the plan splits each row over a cluster."""
+    from levelgan_torch.kernels import gp_penalty as k2
+    g2 = torch.randn((b, f), device=cuda)
+    pen, norm = k2.norm_penalty_fwd(g2)
+    again = k2.norm_penalty_fwd(g2)
+    assert torch.equal(pen, again[0]) and torch.equal(norm, again[1])
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_norm_penalty_fwd_at_every_cluster_size(cuda, monkeypatch, k):
+    from levelgan_torch.kernels import gp_penalty as k2
+    g2 = torch.randn((5, 16384 + 4 * 37), device=cuda)
+    plan = k2.fwd_plan(5, g2.shape[1], 132, k=k)
+    monkeypatch.setattr(k2, "fwd_plan", lambda *a: plan)
+    pen, norm = k2.norm_penalty_fwd(g2)
+    pen_p, norm_p = k2.norm_penalty_fwd_plain(g2)
+    torch.testing.assert_close(norm, norm_p, atol=0, rtol=1e-5)
+    torch.testing.assert_close(pen, pen_p, atol=1e-6, rtol=1e-5)
+    assert torch.equal(k2.norm_penalty_fwd(g2)[1], norm)
+
+
+@pytest.mark.parametrize("f", K2_WIDTHS)
+def test_norm_penalty_bwd_takes_a_stride0_cotangent(cuda, f):
+    from levelgan_torch.kernels import gp_penalty as k2
+    g2 = torch.randn((64, f), device=cuda)
+    _, norm = k2.norm_penalty_fwd(g2)
+    ct0 = torch.full((), 1 / 64, device=cuda).expand(64)
+    assert ct0.stride() == (0,)
+    assert torch.equal(k2.norm_penalty_bwd(g2, norm, ct0),
+                       k2.norm_penalty_bwd(g2, norm, ct0.contiguous()))
+
+
+def test_norm_penalty_plans_that_do_not_fit_raise(cuda, monkeypatch):
+    """A row too long for the forward's loads raises with its shape; a plan
+    the C side refuses raises without counting a launch, and the next call
+    runs."""
+    from levelgan_torch.kernels import gp_penalty as k2
+    with pytest.raises(ValueError, match=r"\[2, 262148\]"):
+        k2.norm_penalty_fwd(torch.zeros((2, 262148), device=cuda))
+    g2 = torch.randn((4, 2048), device=cuda)
+    pen, norm = k2.norm_penalty_fwd(g2)
+    dg = k2.norm_penalty_bwd(g2, norm, torch.ones(4, device=cuda))
+    n = (k2.fwd_launches, k2.bwd_launches)
+    monkeypatch.setattr(k2, "fwd_plan", lambda *a: k2.FwdPlan(2, 32, 1, 0))
+    monkeypatch.setattr(k2, "bwd_plan", lambda *a: k2.BwdPlan(1, 32))
+    with pytest.raises(RuntimeError, match="norm_penalty_fwd"):
+        k2.norm_penalty_fwd(g2)
+    with pytest.raises(RuntimeError, match="norm_penalty_bwd"):
+        k2.norm_penalty_bwd(g2, norm, torch.ones(4, device=cuda))
+    assert (k2.fwd_launches, k2.bwd_launches) == n
+    monkeypatch.undo()
+    assert torch.equal(k2.norm_penalty_fwd(g2)[0], pen)
+    assert torch.equal(
+        k2.norm_penalty_bwd(g2, norm, torch.ones(4, device=cuda)), dg)
 
 
 def _trunk_inputs(b, m0, chans, has_gn, device, seed=4):
