@@ -48,9 +48,9 @@ Needs one CUDA card (exits non-zero without one, and without the
    then K2 core fwd / bwd on [64, 32768], [64, 8192] and [64, 2048] f32
    against their plain versions (forward twice, bit for bit; backward
    also with a stride-0 cotangent), each with the launch floor of
-   ``queued_ms``, its L2-cold time, its plan and a sweep of the plans,
-   and the ATen operations and device kernels of one
-   ``NormPenalty.backward`` (only the kernel's output may be allocated);
+   ``queued_ms``, its L2-cold time and its plan, and the ATen operations
+   and device kernels of one ``NormPenalty.backward`` (only the kernel's
+   output may be allocated);
 7. the training paths through ``levelgan_torch.cli.train`` (corpus cut to
    256 levels): gumbel_64 for 10 steps, wgan_gp_32 with
    ``model.pallas_gp=fused`` for 30 and wgan_gp_32_structural with it for
@@ -882,34 +882,17 @@ K2_CORE_SHAPES = (("gumbel_64", 64 * 64 * 8), ("wgan_gp_32", 32 * 32 * 8),
                   ("16x16", 16 * 16 * 8))
 
 
-def sweep_ms(mod, attr, plans, fn) -> str:
-    """``fn`` timed (``queued_ms``) with ``mod.<attr>`` returning each of
-    ``plans`` ((label, plan) pairs) in turn."""
-    chosen = getattr(mod, attr)
-    out = []
-    try:
-        for label, plan in plans:
-            setattr(mod, attr, lambda *a, plan=plan: plan)
-            out.append(f"{label} {queued_ms(fn):.5f}")
-    finally:
-        setattr(mod, attr, chosen)
-    return ", ".join(out)
-
-
 def k2_core_rows(device, rows):
     """K2 core fwd / bwd at ``K2_CORE_SHAPES`` (B = 64, f32), each against
     its plain version by K2_TOL, two forward calls bit for bit, a stride-0
     cotangent against a contiguous one, the times (``record``) with the
     launch floor, the L2-cold time (``cold_ms``) and the plan beside them;
     then one ``NormPenalty.backward`` as autograd calls it after the GP's
-    ``.mean()``: its ATen operations and device kernels.  Also runs
-    against a package whose wrapper has no plans (K2 core before its
-    redesign, to time both in one run), without the checks that need
-    them."""
+    ``.mean()``: its ATen operations and device kernels, which must be the
+    output's allocation and the K2 core bwd kernel alone."""
     import torch
     from levelgan_torch.kernels import gp_penalty as k2
-    b, planned = B_TRAIN, hasattr(k2, "fwd_plan")
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    b = B_TRAIN
     floor = launch_floor_ms()
     print(f"  launch floor of queued_ms (torch.cuda._sleep(1) back to back): "
           f"{floor:.5f} ms")
@@ -928,17 +911,11 @@ def k2_core_rows(device, rows):
                lambda: k2.norm_penalty_fwd_plain(g2),
                lambda: torch.linalg.vector_norm(g2, dim=1), 2.0 * b * f,
                4.0 * b * f + 2 * 4 * b, PEAK_F32_FLOPS)
-        plan = (str(k2.fwd_plan(b, f, n_sm)) if planned
-                else "none (one block of 512 threads a sample)")
+        plan = str(k2.fwd_plan(b, f))
         rows[-1].update(floor_ms=floor, plan=plan,
                         cold_ms=cold_ms(k2.norm_penalty_fwd, (g2,)))
         print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
               f"ms; two calls bit-identical; plan {plan}")
-        if planned:
-            print("    by cluster size k (ms): " + sweep_ms(
-                k2, "fwd_plan", [(k, k2.fwd_plan(b, f, n_sm, k=k))
-                                 for k in k2.FWD_CLUSTERS],
-                lambda: k2.norm_penalty_fwd(g2)))
         scale = (ct * 2.0 * (norm_k - 1.0) / norm_k)[:, None]
         errs = errs_of(("dg",), (k2.norm_penalty_bwd(g2, norm_k, ct),),
                        (k2.norm_penalty_bwd_plain(g2, norm_k, ct),), K2_TOL)
@@ -947,35 +924,32 @@ def k2_core_rows(device, rows):
                lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
                lambda: torch.mul(g2, scale), 1.0 * b * f,
                8.0 * b * f + 3 * 4 * b, PEAK_F32_FLOPS)
-        plan = (str(k2.bwd_plan(b, f, n_sm)) if planned
-                else "none ((ceil(F / 4096), B) blocks of 256 threads)")
+        plan = str(k2.bwd_plan(b, f))
         rows[-1].update(floor_ms=floor, plan=plan, cold_ms=cold_ms(
             k2.norm_penalty_bwd, (g2, norm_k, ct)))
         print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
               f"ms; plan {plan}")
-        if planned:
-            print("    by float4s a block (ms): " + sweep_ms(
-                k2, "bwd_plan", [(per, k2.bwd_plan(b, f, n_sm, per=per))
-                                 for per in (1024, 512, 256, 128)],
-                lambda: k2.norm_penalty_bwd(g2, norm_k, ct)))
-            ct0 = ct[:1].expand(b)
-            if not torch.equal(k2.norm_penalty_bwd(g2, norm_k, ct0),
-                               k2.norm_penalty_bwd(g2, norm_k,
-                                                   ct0.contiguous())):
-                fail(f"K2 core bwd at [{b}, {f}]: a stride-0 cotangent gives "
-                     "another dg than a contiguous one")
-    if planned:
-        # where the plan splits a row: small batches at the widest row
-        for bs in (3, 16):
-            g2s = torch.randn((bs, K2_CORE_SHAPES[0][1]), generator=gen,
-                              device=device)
-            print(f"  K2 core fwd [{bs}, {g2s.shape[1]}], plan "
-                  f"{k2.fwd_plan(bs, g2s.shape[1], n_sm)}, by cluster size k "
-                  "(ms): " + sweep_ms(
-                      k2, "fwd_plan",
-                      [(k, k2.fwd_plan(bs, g2s.shape[1], n_sm, k=k))
-                       for k in k2.FWD_CLUSTERS],
-                      lambda: k2.norm_penalty_fwd(g2s)))
+        ct0 = ct[:1].expand(b)
+        if not torch.equal(k2.norm_penalty_bwd(g2, norm_k, ct0),
+                           k2.norm_penalty_bwd(g2, norm_k, ct0.contiguous())):
+            fail(f"K2 core bwd at [{b}, {f}]: a stride-0 cotangent gives "
+                 "another dg than a contiguous one")
+    # a row that the forward reads in several chunks: gumbel_64 at
+    # model.level_size=128
+    g2l = torch.randn((b, 128 * 128 * 8), generator=gen, device=device) * 0.01
+    pen_l, norm_l = k2.norm_penalty_fwd(g2l)
+    errs = errs_of(("pen", "norm"), (pen_l, norm_l),
+                   k2.norm_penalty_fwd_plain(g2l), K2_TOL)
+    errs.update(errs_of(("dg",), (k2.norm_penalty_bwd(g2l, norm_l, ct),),
+                        (k2.norm_penalty_bwd_plain(g2l, norm_l, ct),),
+                        K2_TOL))
+    print(f"  K2 core at [{b}, {g2l.shape[1]}] (plan {k2.fwd_plan(*g2l.shape)}"
+          "): " + " ".join(f"{k} rel {v[1]:.3g} (tol {v[2]:.3g})"
+                           for k, v in errs.items()))
+    if any(v[1] > v[2] for v in errs.values()):
+        fail(f"K2 core at [{b}, {g2l.shape[1]}] disagrees with its plain "
+             "version")
+    del g2l
     # one NormPenalty.backward with the cotangent autograd hands it from
     # the GP's .mean() (the last shape's g2)
     x = g2.clone().requires_grad_()
@@ -992,8 +966,8 @@ def k2_core_rows(device, rows):
           f"{ct.stride()}; ATen operations {dict(ops)}; device kernels "
           + ("not recorded by the profiler" if names is None else
              "; ".join(f"x{n} {k[:60]}" for k, n in names.items())))
-    if planned and (ops != collections.Counter({"aten.empty_like.default": 1})
-                    or (names is not None and sum(names.values()) != 1)):
+    if (ops != collections.Counter({"aten.empty_like.default": 1})
+            or (names is not None and sum(names.values()) != 1)):
         fail("NormPenalty.backward ran more than the K2 core bwd kernel and "
              "its output's allocation")
 

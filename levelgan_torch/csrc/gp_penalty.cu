@@ -8,7 +8,8 @@
 //
 // g2 is the critic's per-sample input gradient, flattened to [B, F] f32
 // (F = 64 * 64 * 8 = 32768 at gumbel_64, 8192 at wgan_gp_32, 2048 at the
-// 16x16 presets; B = 64).  The TPU kernel tiles the batch to fit VMEM.
+// 16x16 presets; B = 64; any F % 4 == 0, as model.level_size and
+// model.n_tiles allow).  The TPU kernel tiles the batch to fit VMEM.
 //
 // What bounds them on an H100.  Both move bytes and do next to no
 // arithmetic: 8.4 MB read forward, 8.4 MB read and 8.4 MB written
@@ -17,40 +18,29 @@
 // just been written by the kernel before, so it sits in the 50 MB L2.  At
 // these sizes the launch is most of the time: 20 launches of a one-cycle
 // kernel back to back read 0.0020-0.0022 ms each (the floor of chip_smoke's
-// queued_ms), against 0.0024-0.0050 ms for these kernels.  So the design
-// puts all of a block's bytes in flight at once and adds as little as it
-// can to the launch.
+// queued_ms), against 0.0025-0.0050 ms for these kernels.  So the design
+// keeps many bytes in flight and adds as little as it can to the launch.
 //
-// Forward.  A sample's row is split over a cluster of k blocks (k in
-// {1, 2, 4, 8}, kernels/gp_penalty.py:fwd_plan).  Rank r of the cluster
-// reads the float4s [r * s4, (r + 1) * s4) of the row; thread t of T loads
-// the float4s r * s4 + j * T + t for j = 0 .. V - 1, all V loads issued
-// before the first sum (V is a template parameter).  The sums run in a
-// fixed order: each thread in four chains (x, y, z, w) over its float4s in
-// j order, then (x + y) + (z + w); a warp-shuffle butterfly; the warps'
-// partials by a second butterfly in warp 0; then the ranks in order at
-// rank 0, which gets the other ranks' partials by st.async onto its
-// mbarrier.  No atomics: two calls give the same bits.  The mbarrier is
-// set up behind a cluster barrier before the loads are issued: a cluster
-// barrier's wait acquires (the compiler adds an L1 invalidation), which
-// costs least while L1 holds nothing.  Even so the exchange costs about
-// what halving a block's slice saves (chip_smoke's K2 core sweep), so
-// fwd_plan splits a row only where that cuts the slice at least four-fold
-// with one block an SM: at small batches.  At B = 64, the main path, the
-// forward is one block a sample (k = 1, no cluster).
+// Forward.  One block a sample (kernels/gp_penalty.py:fwd_plan gives its
+// threads T and V).  The row is read in chunks of V * T float4s; thread t
+// loads the float4s c + j * T + t of chunk c for j = 0 .. V - 1, all V
+// loads issued before their first sum (V is a template parameter).  The
+// sums run in a fixed order: each thread in four chains (x, y, z, w) over
+// its float4s in chunk then j order, then (x + y) + (z + w); a warp-shuffle
+// butterfly; the warps' partials by a second butterfly in warp 0.  No
+// atomics: two calls give the same bits.  Splitting a row over a cluster
+// of blocks was measured and dropped: at B = 64 its exchange cost what the
+// shorter slice saved; it paid only at small batches that no preset runs.
 //
-// Backward.  A scaled copy over a (chunk, sample) grid that gives every SM
-// a block where the batch allows (kernels/gp_penalty.py:bwd_plan).  A
-// thread issues its 4 16-byte loads, then computes the sample's scale from
-// two broadcast loads while they are in flight, then stores 4 float4s.
-// The cotangent is read with its stride: the broadcast of a scalar
-// (stride 0) needs no copy.  Plain stores: dg goes straight into the
-// critic's double backward, which reads it from L2.
+// Backward.  A scaled copy over a (chunk, sample) grid of 256-thread
+// blocks, 1024 float4s a block (kernels/gp_penalty.py:bwd_plan).  A thread
+// issues its 4 16-byte loads, then computes the sample's scale from two
+// broadcast loads while they are in flight, then stores 4 float4s.  The
+// cotangent is read with its stride: the broadcast of a scalar (stride 0)
+// needs no copy.  Plain stores: dg goes straight into the critic's double
+// backward, which reads it from L2.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "stage_common.cuh"
 
 namespace {
 
@@ -58,26 +48,12 @@ constexpr float EPS = 1e-12f;
 constexpr int FWD_MAX_THREADS = 512;
 constexpr int BWD_MAX_THREADS = 256;
 constexpr int BWD_VEC = 4;            // float4 loads a backward thread
-constexpr int MAX_CLUSTER = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A launch's arguments: the row length n4 and the slice of a block (s4,
-// p4) in float4s; the forward's cluster size is 1 << lk.
-struct FwdArgs {
-  const float4* g;
-  float* pen;
-  float* norm;
-  int n4, s4, lk;
-};
 
 struct BwdArgs {
   const float4* g;
@@ -89,8 +65,8 @@ struct BwdArgs {
 };
 
 // A thread's V float4s p[0], p[stride], ..., all issued before any is
-// used; those at or past `left` float4s are zeros, unless the block's slice
-// is `full` (the common case: no test on the loads).
+// used; those at or past `left` float4s are zeros, unless the slice is
+// `full` (the common case: no test on the loads).
 template <int V>
 __device__ __forceinline__ void load_slice(float4 (&v)[V], const float4* p,
                                            int stride, int left, bool full) {
@@ -107,60 +83,36 @@ __device__ __forceinline__ void load_slice(float4 (&v)[V], const float4* p,
 
 template <int V>
 __global__ void __launch_bounds__(FWD_MAX_THREADS)
-norm_penalty_fwd_kernel(const FwdArgs a) {
+norm_penalty_fwd_kernel(const float4* __restrict__ g, float* __restrict__ pen,
+                        float* __restrict__ norm, int n4) {
   __shared__ float red[FWD_MAX_THREADS / 32];
-  __shared__ float2 parts[MAX_CLUSTER];
-  __shared__ uint64_t bar;
-  // a one-dimensional cluster of k blocks: its rank r is blockIdx.x % k
-  const int k = 1 << a.lk, rank = blockIdx.x & (k - 1);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int b = blockIdx.x >> a.lk;
-  const uint32_t sbar = smem_addr(&bar);
-  if (k > 1) {
-    // rank 0 expects the other ranks' partials (8 bytes each) on its
-    // mbarrier, set up before any rank can push: the fence publishes the
-    // set-up to the cluster, the (relaxed) barrier orders it before the
-    // pushes.  Done before the loads are issued: a cluster barrier's wait
-    // acquires, which costs far more once the loads have filled L1.
-    if (rank == 0 && tid == 0) {
-      lgt::mbar_init(sbar, 1);
-      lgt::mbar_expect_tx(sbar, 8 * (k - 1));
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  }
-  const int lo = rank * a.s4, len = min(a.s4, a.n4 - lo);
-  const float4* p = a.g + static_cast<size_t>(b) * a.n4 + lo + tid;
-  float4 v[V];
-  load_slice<V>(v, p, nthr, len - tid, V * nthr <= len);
-  // four independent chains (the x, y, z and w of the float4s, in j
-  // order), then (x + y) + (z + w)
+  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const int chunk = V * nthr;
+  const float4* p = g + static_cast<size_t>(b) * n4 + tid;
+  // four independent chains (the x, y, z and w of the float4s, in chunk
+  // then j order), then (x + y) + (z + w)
   float sx = 0.f, sy = 0.f, sz = 0.f, sw = 0.f;
+  for (int lo = 0; lo < n4; lo += chunk) {
+    float4 v[V];
+    load_slice<V>(v, p + lo, nthr, n4 - lo - tid, chunk <= n4 - lo);
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    sx = fmaf(v[j].x, v[j].x, sx);
-    sy = fmaf(v[j].y, v[j].y, sy);
-    sz = fmaf(v[j].z, v[j].z, sz);
-    sw = fmaf(v[j].w, v[j].w, sw);
+    for (int j = 0; j < V; ++j) {
+      sx = fmaf(v[j].x, v[j].x, sx);
+      sy = fmaf(v[j].y, v[j].y, sy);
+      sz = fmaf(v[j].z, v[j].z, sz);
+      sw = fmaf(v[j].w, v[j].w, sw);
+    }
   }
   float s = warp_sum((sx + sy) + (sz + sw));
   if ((tid & 31) == 0) red[tid >> 5] = s;
   __syncthreads();
-  if (tid < 32) s = warp_sum(tid < nthr / 32 ? red[tid] : 0.f);
-  if (k > 1 && tid == 0) {
-    if (rank != 0) {
-      lgt::st_async8(lgt::map_rank(smem_addr(&parts[rank]), 0), s, 0.f,
-                     lgt::map_rank(sbar, 0));
-    } else {
-      lgt::mbar_wait_cluster(sbar, 0);
-      for (int r = 1; r < k; ++r) s += parts[r].x;
+  if (tid < 32) {
+    s = warp_sum(tid < nthr / 32 ? red[tid] : 0.f);
+    if (tid == 0) {
+      const float nrm = sqrtf(s + EPS);
+      norm[b] = nrm;
+      pen[b] = (nrm - 1.f) * (nrm - 1.f);
     }
-  }
-  if (rank == 0 && tid == 0) {
-    const float nrm = sqrtf(s + EPS);
-    a.norm[b] = nrm;
-    a.pen[b] = (nrm - 1.f) * (nrm - 1.f);
   }
 }
 
@@ -184,67 +136,32 @@ norm_penalty_bwd_kernel(const BwdArgs a) {
                                 scale * v[j].z, scale * v[j].w);
 }
 
-// An error of a set-up call is not sticky, but it stays the runtime's last
-// error: clear it, or the next launch's cudaGetLastError reports it.
-int failed(cudaError_t err) {
-  cudaGetLastError();
-  return static_cast<int>(err);
-}
-
-template <int V>
-cudaError_t launch_fwd(int B, int k, int threads, cudaStream_t stream,
-                       const FwdArgs& a) {
-  if (k == 1) {
-    norm_penalty_fwd_kernel<V><<<B, threads, 0, stream>>>(a);
-    return cudaSuccess;
-  }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = k;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * k);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, norm_penalty_fwd_kernel<V>, a);
-}
-
 bool valid_threads(int threads, int most) {
   return threads >= 32 && threads <= most && threads % 32 == 0;
 }
 
 }  // namespace
 
-// g2 [B,F] f32 -> pen, norm [B] f32, by the plan (k, threads, vec) of
-// kernels/gp_penalty.py:fwd_plan: clusters of k blocks a sample, each of
-// `threads` threads issuing `vec` 16-byte loads.  The caller checks F % 4
-// == 0, contiguity and 16-byte alignment.  A plan that does not cover the
-// row, or a refused launch, returns its error without launching.
+// g2 [B,F] f32 -> pen, norm [B] f32, by the plan (threads, vec) of
+// kernels/gp_penalty.py:fwd_plan: one block of `threads` threads a sample,
+// each issuing `vec` 16-byte loads at a time.  The caller checks F % 4 ==
+// 0, contiguity and 16-byte alignment.  A plan the kernel does not take
+// returns cudaErrorInvalidValue without launching.
 extern "C" int norm_penalty_fwd(const void* g2, void* pen, void* norm, int B,
-                                int F, int k, int threads, int vec,
-                                void* stream) {
-  const int n4 = F / 4, s4 = (n4 + k - 1) / k;
-  const int lk = k == 8 ? 3 : k == 4 ? 2 : k == 2 ? 1 : 0;
-  if (B < 1 || F % 4 || !(k == 1 || k == 2 || k == 4 || k == 8) ||
-      !valid_threads(threads, FWD_MAX_THREADS) ||
-      static_cast<long long>(vec) * threads < s4)
+                                int F, int threads, int vec, void* stream) {
+  if (B < 1 || F < 0 || F % 4 || !valid_threads(threads, FWD_MAX_THREADS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const FwdArgs a{static_cast<const float4*>(g2), static_cast<float*>(pen),
-                  static_cast<float*>(norm), n4, s4, lk};
+  const auto g = static_cast<const float4*>(g2);
+  const auto p = static_cast<float*>(pen), n = static_cast<float*>(norm);
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (vec) {
-    case 1: err = launch_fwd<1>(B, k, threads, st, a); break;
-    case 2: err = launch_fwd<2>(B, k, threads, st, a); break;
-    case 4: err = launch_fwd<4>(B, k, threads, st, a); break;
-    case 8: err = launch_fwd<8>(B, k, threads, st, a); break;
-    case 16: err = launch_fwd<16>(B, k, threads, st, a); break;
+    case 4: norm_penalty_fwd_kernel<4><<<B, threads, 0, st>>>(g, p, n, F / 4);
+            break;
+    case 16: norm_penalty_fwd_kernel<16><<<B, threads, 0, st>>>(g, p, n,
+                                                                 F / 4);
+             break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return failed(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,19 +19,16 @@ Design (in full: the note at the head of ``csrc/gp_penalty.cu``).  The
 TPU kernel tiles the batch to fit VMEM.  On the card both kernels move
 bytes and do next to no arithmetic, and at B = 64 the launch is most of
 their time: chip_smoke's ``queued_ms`` reads 0.0020-0.0022 ms for a
-one-cycle kernel on an H100.  The forward issues all of a block's 16-byte
-loads at once and sums in a fixed order (each thread in load order, a
-warp-shuffle butterfly, the warps by a second one, and where ``fwd_plan``
-splits a row over a thread-block cluster, the ranks in order at rank 0
-through distributed shared memory), so two calls give the same bits.  The
-cluster's exchange costs about what halving a block's slice saves, so the
-plan splits rows only at small batches; at B = 64 it is one block a
-sample.  The backward is a scaled copy over a grid that gives every SM a
-block where the batch allows (``bwd_plan``), each thread's loads issued
-before its stores; it reads the cotangent with its stride, so a broadcast
-cotangent (stride 0, as ``.sum()``'s backward gives) needs no copy.  The
-plans are plain Python, passed to the C functions as they are, so a CPU
-test replays exactly what is launched (``tests/test_torch_k2_core.py``).
+one-cycle kernel on an H100.  The forward is one block a sample that reads
+its row in chunks, every chunk's 16-byte loads issued at once, and sums in
+a fixed order (each thread in load order, a warp-shuffle butterfly, the
+warps by a second one), so two calls give the same bits.  The backward is
+a scaled copy over a (chunk, sample) grid of 1024 float4s a block, each
+thread's loads issued before its stores; it reads the cotangent with its
+stride, so a broadcast cotangent (stride 0, as ``.sum()``'s backward gives)
+needs no copy.  The plans (``fwd_plan``, ``bwd_plan``) are plain Python,
+passed to the C functions as they are, so a CPU test replays exactly what
+is launched (``tests/test_torch_k2_core.py``).
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
@@ -40,7 +37,6 @@ launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -54,27 +50,15 @@ EPS = 1e-12
 fwd_launches = 0      # forward kernel launches since the last reset
 bwd_launches = 0      # backward kernel launches since the last reset
 
-FWD_CLUSTERS = (1, 2, 4, 8)   # blocks a sample the forward may take
-FWD_VECS = (1, 2, 4, 8, 16)   # float4 loads a thread, compiled forward
+FWD_VECS = (4, 16)            # float4 loads a thread a chunk, compiled
 FWD_MAX_THREADS = 512         # the kernels' launch bounds
 BWD_MAX_THREADS = 256
 BWD_VEC = 4                   # float4 loads a backward thread
-# A forward cluster costs its exchange, ~0.3 us on an H100 (chip_smoke's
-# K2 core sweep): it pays only where it cuts a block's slice at least
-# MIN_SPLIT-fold, to no less than MIN_SLICE float4s (32 KB), with one
-# block an SM.  At B = 64 no width qualifies: the main path runs k = 1.
-MIN_SPLIT = 4
-MIN_SLICE = 2048
-# static shared memory of a forward block: the warps' partials, the
-# cluster ranks' partials (float2 each) and the mbarrier
-FWD_SMEM = 4 * FWD_MAX_THREADS // 32 + 8 * 8 + 8
 
 
 class FwdPlan(NamedTuple):
-    k: int          # blocks (one cluster) a sample
-    threads: int    # threads a block
-    vec: int        # float4 loads a thread, all issued before its first sum
-    smem: int       # shared memory a block, bytes
+    threads: int    # threads of the sample's block
+    vec: int        # float4 loads a thread a chunk, issued before their sums
 
 
 class BwdPlan(NamedTuple):
@@ -86,51 +70,37 @@ def _pow2ceil(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def fwd_plan(b: int, f: int, n_sm: int, k: int | None = None) -> FwdPlan:
-    """The forward's launch for g2 [b, f] on a card of ``n_sm`` SMs: the
-    largest cluster size k >= ``MIN_SPLIT`` for which the b * k blocks take
-    one SM each and every block reads ``MIN_SLICE`` float4s or more, else 1
-    (or ``k`` as given); then threads for about 4 loads each, and the loads
-    a thread needs (a power of two).  Rank r of a sample's cluster reads
-    the float4s [r * s4, (r + 1) * s4) of its row, s4 = ceil(f / 4 / k);
-    its thread t the float4s r * s4 + j * threads + t, j < vec."""
+def fwd_plan(b: int, f: int) -> FwdPlan:
+    """The forward's launch for g2 [b, f]: one block a sample, of threads
+    for about 4 float4s each (a power of two, 32 to 512), each loading 4
+    float4s at a time where the row has at most 2048 of them, else 16.
+    The row is read in chunks of threads * vec float4s; thread t loads the
+    float4s c + j * threads + t of chunk c, j < vec."""
+    if f >= 2 ** 31:
+        raise ValueError(f"K2 core fwd: g2 [{b}, {f}] has a row length "
+                         "outside the kernel's int range")
     n4 = f // 4
-    if k is None:
-        k = max(c for c in FWD_CLUSTERS if c == 1 or (
-            c >= MIN_SPLIT and b * c <= n_sm and n4 // c >= MIN_SLICE))
-    s4 = -(-n4 // k)
-    threads = min(FWD_MAX_THREADS, max(32, _pow2ceil(-(-s4 // 4))))
-    vec = _pow2ceil(-(-s4 // threads))
-    if k not in FWD_CLUSTERS or vec not in FWD_VECS:
-        raise ValueError(f"K2 core fwd: a row of g2 [{b}, {f}] needs {vec} "
-                         f"loads a thread of {threads} in a cluster of {k} "
-                         f"(at most {FWD_VECS[-1]}, clusters {FWD_CLUSTERS})")
-    return FwdPlan(k, threads, vec, FWD_SMEM)
+    threads = min(FWD_MAX_THREADS, max(32, _pow2ceil(-(-n4 // 4))))
+    return FwdPlan(threads, 4 if n4 <= 4 * threads else 16)
 
 
-def bwd_plan(b: int, f: int, n_sm: int, per: int | None = None) -> BwdPlan:
+def bwd_plan(b: int, f: int) -> BwdPlan:
     """The backward's launch for g2 [b, f]: blocks of 1024 float4s (256
-    threads), halved down to 128 (32 threads) until the (chunk, sample)
-    grid gives each of the ``n_sm`` SMs a block (or ``per`` float4s a block
-    as given, a power of two from 128 to 1024).  Chunk c of a sample covers
-    the float4s [c * p4, (c + 1) * p4) of its row, p4 = threads * BWD_VEC;
-    its thread t the float4s c * p4 + j * threads + t, j < BWD_VEC."""
+    threads), ceil(f / 4096) a sample.  Chunk c of a sample covers the
+    float4s [c * 1024, (c + 1) * 1024) of its row; its thread t the
+    float4s c * 1024 + j * 256 + t, j < BWD_VEC."""
     if not 1 <= b <= 65535:
         raise ValueError(f"K2 core bwd: g2 [{b}, {f}] has a batch outside "
                          "1..65535 (the grid's second dimension)")
-    n4 = f // 4
-    if per is None:
-        per = BWD_MAX_THREADS * BWD_VEC
-        while per > 32 * BWD_VEC and b * -(-n4 // per) < n_sm:
-            per //= 2
-    return BwdPlan(-(-n4 // per), per // BWD_VEC)
+    per = BWD_MAX_THREADS * BWD_VEC
+    return BwdPlan(max(1, -(-(f // 4) // per)), BWD_MAX_THREADS)
 
 
 def _lib():
     lib = build.load("gp_penalty")
     fn = lib.norm_penalty_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bwd = lib.norm_penalty_bwd
@@ -171,23 +141,18 @@ def _check_g2(g2: torch.Tensor):
     return b, f
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def norm_penalty_fwd(g2: torch.Tensor):
     """g2 [B, F] f32 -> (pen [B], norm [B]) f32."""
     if g2.device.type == "cpu":
         return norm_penalty_fwd_plain(g2)
     b, f = _check_g2(g2)
-    plan = fwd_plan(b, f, _n_sm(g2.device))
+    plan = fwd_plan(b, f)
     pen = torch.empty((b,), dtype=torch.float32, device=g2.device)
     norm = torch.empty_like(pen)
     with torch.cuda.device(g2.device):
         err = _lib().norm_penalty_fwd(build.ptr(g2), build.ptr(pen),
-                                      build.ptr(norm), b, f, plan.k,
-                                      plan.threads, plan.vec,
+                                      build.ptr(norm), b, f, plan.threads,
+                                      plan.vec,
                                       build.stream_ptr(g2.device))
     build.check(err, f"norm_penalty_fwd at [{b}, {f}] by {plan}")
     global fwd_launches
@@ -204,7 +169,7 @@ def norm_penalty_bwd(g2: torch.Tensor, norm: torch.Tensor,
     b, f = _check_g2(g2)
     _check("norm", norm, (b,), g2.device)
     _check("ct", ct, (b,), g2.device, contiguous=False)
-    plan = bwd_plan(b, f, _n_sm(g2.device))
+    plan = bwd_plan(b, f)
     dg = torch.empty_like(g2)
     with torch.cuda.device(g2.device):
         err = _lib().norm_penalty_bwd(build.ptr(g2), build.ptr(norm),

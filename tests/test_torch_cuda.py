@@ -165,7 +165,6 @@ def test_norm_penalty_matches_plain(cuda, b, f):
 @pytest.mark.parametrize("f", K2_WIDTHS)
 @pytest.mark.parametrize("b", [3, 64])
 def test_norm_penalty_fwd_is_bit_reproducible(cuda, b, f):
-    """At B = 3 and F = 32768 the plan splits each row over a cluster."""
     from levelgan_torch.kernels import gp_penalty as k2
     g2 = torch.randn((b, f), device=cuda)
     pen, norm = k2.norm_penalty_fwd(g2)
@@ -173,17 +172,23 @@ def test_norm_penalty_fwd_is_bit_reproducible(cuda, b, f):
     assert torch.equal(pen, again[0]) and torch.equal(norm, again[1])
 
 
-@pytest.mark.parametrize("k", [1, 2, 4, 8])
-def test_norm_penalty_fwd_at_every_cluster_size(cuda, monkeypatch, k):
+@pytest.mark.parametrize("b, f", [(5, 32916), (64, 64 * 64 * 9),
+                                  (64, 128 * 128 * 8), (2, 262148)])
+def test_norm_penalty_at_rows_longer_than_a_chunk(cuda, b, f):
+    """gumbel_64 with model.n_tiles=9 or model.level_size=128, a row that
+    ends inside a chunk, and one of 65,537 float4s: the forward reads them
+    in several chunks."""
     from levelgan_torch.kernels import gp_penalty as k2
-    g2 = torch.randn((5, 16384 + 4 * 37), device=cuda)
-    plan = k2.fwd_plan(5, g2.shape[1], 132, k=k)
-    monkeypatch.setattr(k2, "fwd_plan", lambda *a: plan)
+    g2 = torch.randn((b, f), device=cuda) * 0.01
+    ct = torch.randn(b, device=cuda)
     pen, norm = k2.norm_penalty_fwd(g2)
     pen_p, norm_p = k2.norm_penalty_fwd_plain(g2)
     torch.testing.assert_close(norm, norm_p, atol=0, rtol=1e-5)
     torch.testing.assert_close(pen, pen_p, atol=1e-6, rtol=1e-5)
     assert torch.equal(k2.norm_penalty_fwd(g2)[1], norm)
+    torch.testing.assert_close(k2.norm_penalty_bwd(g2, norm, ct),
+                               k2.norm_penalty_bwd_plain(g2, norm, ct),
+                               atol=1e-7, rtol=1e-5)
 
 
 @pytest.mark.parametrize("f", K2_WIDTHS)
@@ -198,17 +203,14 @@ def test_norm_penalty_bwd_takes_a_stride0_cotangent(cuda, f):
 
 
 def test_norm_penalty_plans_that_do_not_fit_raise(cuda, monkeypatch):
-    """A row too long for the forward's loads raises with its shape; a plan
-    the C side refuses raises without counting a launch, and the next call
-    runs."""
+    """A plan the C side refuses raises without counting a launch, and the
+    next call runs."""
     from levelgan_torch.kernels import gp_penalty as k2
-    with pytest.raises(ValueError, match=r"\[2, 262148\]"):
-        k2.norm_penalty_fwd(torch.zeros((2, 262148), device=cuda))
     g2 = torch.randn((4, 2048), device=cuda)
     pen, norm = k2.norm_penalty_fwd(g2)
     dg = k2.norm_penalty_bwd(g2, norm, torch.ones(4, device=cuda))
     n = (k2.fwd_launches, k2.bwd_launches)
-    monkeypatch.setattr(k2, "fwd_plan", lambda *a: k2.FwdPlan(2, 32, 1, 0))
+    monkeypatch.setattr(k2, "fwd_plan", lambda *a: k2.FwdPlan(32, 3))
     monkeypatch.setattr(k2, "bwd_plan", lambda *a: k2.BwdPlan(1, 32))
     with pytest.raises(RuntimeError, match="norm_penalty_fwd"):
         k2.norm_penalty_fwd(g2)

@@ -5,9 +5,8 @@ penalty core against the JAX package's Pallas kernel (interpret mode).
 kernels (``levelgan_torch/csrc/gp_penalty.cu``), so these tests replay
 exactly what is launched: which float4s each thread of each block reads,
 and the forward's fixed order of the sums (each thread in load order, a
-warp-shuffle butterfly, the warps by a second butterfly, the cluster's
-ranks in order).  The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``).
+warp-shuffle butterfly, the warps by a second butterfly).  The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 import jax
@@ -19,23 +18,22 @@ import torch
 from levelgan.kernels.gp_penalty import norm_penalty as j_norm_penalty
 from levelgan_torch.kernels import gp_penalty as k2
 
-N_SM = 132                    # an H100 SXM
-MAX_SMEM = 232448             # shared memory a block may use on the card
 # the flattened input gradient at gumbel_64, wgan_gp_32 and the 16x16 presets
 WIDTHS = (64 * 64 * 8, 32 * 32 * 8, 16 * 16 * 8)
-BATCHES = (1, 3, 64)
+# rows longer than one chunk of the forward: gumbel_64 with model.n_tiles=9
+# or model.level_size=128, and a row that ends inside a chunk
+LONG_WIDTHS = (64 * 64 * 9, 128 * 128 * 8, 32768 + 4 * 37)
+BATCHES = (1, 3, 34, 64)
 
 
 def _fwd_reads(plan, n4):
-    """rank -> [vec, threads] float4 indices of the row a forward thread
-    loads, -1 where its load is masked (the kernel's index formula)."""
-    s4 = -(-n4 // plan.k)
-    out = []
-    for r in range(plan.k):
-        idx = (r * s4 + np.arange(plan.vec)[:, None] * plan.threads
-               + np.arange(plan.threads)[None, :])
-        out.append(np.where(idx < min((r + 1) * s4, n4), idx, -1))
-    return out
+    """[chunks * vec, threads] float4 indices of the row a forward thread
+    loads, in its order of the sums, -1 where its load is masked (the
+    kernel's index formula: chunk c, load j is row c * vec + j)."""
+    chunks = max(1, -(-n4 // (plan.vec * plan.threads)))
+    idx = (np.arange(chunks * plan.vec)[:, None] * plan.threads
+           + np.arange(plan.threads)[None, :])
+    return np.where(idx < n4, idx, -1)
 
 
 def _bwd_reads(plan, n4):
@@ -70,88 +68,70 @@ def _replay_fwd(g2, plan):
     b, f = g2.shape
     n4 = f // 4
     rows = g2.reshape(b, n4, 4).astype(np.float32)
+    idx = _fwd_reads(plan, n4)
     norms = []
     for row in rows:
-        total = np.float32(0)
-        for r, idx in enumerate(_fwd_reads(plan, n4)):
-            x = np.where((idx >= 0)[..., None], row[np.maximum(idx, 0)],
-                         np.float32(0))                  # [vec, threads, 4]
-            # four chains (x, y, z, w) in load order, then (x + y) + (z + w)
-            c4 = np.zeros((4, plan.threads), np.float32)
-            for j in range(plan.vec):
-                c4 = c4 + x[j].T * x[j].T
-            s = (c4[0] + c4[1]) + (c4[2] + c4[3])
-            warps = _butterfly(s.reshape(plan.threads // 32, 32))
-            lanes = np.zeros(32, np.float32)
-            lanes[:len(warps)] = warps
-            part = _butterfly(lanes)
-            total = part if r == 0 else np.float32(total + part)
+        x = np.where((idx >= 0)[..., None], row[np.maximum(idx, 0)],
+                     np.float32(0))                  # [loads, threads, 4]
+        # four chains (x, y, z, w) in load order, then (x + y) + (z + w)
+        c4 = np.zeros((4, plan.threads), np.float32)
+        for j in range(len(x)):
+            c4 = c4 + x[j].T * x[j].T
+        s = (c4[0] + c4[1]) + (c4[2] + c4[3])
+        warps = _butterfly(s.reshape(plan.threads // 32, 32))
+        lanes = np.zeros(32, np.float32)
+        lanes[:len(warps)] = warps
+        total = _butterfly(lanes)
         norms.append(np.sqrt(np.float32(total + np.float32(1e-12))))
     return np.array(norms, np.float32)
 
 
-@pytest.mark.parametrize("f", WIDTHS)
+@pytest.mark.parametrize("f", WIDTHS + LONG_WIDTHS)
 @pytest.mark.parametrize("b", BATCHES)
 def test_fwd_plan_covers_each_float4_once(b, f):
-    plan = k2.fwd_plan(b, f, N_SM)
-    assert plan.k in (1, 2, 4, 8) and plan.vec in k2.FWD_VECS
+    """Every batch and every row length the wrapper is given, rows longer
+    than a chunk included, gets a plan that reads each float4 once."""
+    plan = k2.fwd_plan(b, f)
+    assert plan.vec in k2.FWD_VECS
     assert 32 <= plan.threads <= k2.FWD_MAX_THREADS
-    assert plan.threads % 32 == 0 and plan.smem < MAX_SMEM
-    _covers_once(_fwd_reads(plan, f // 4), f // 4)
+    assert plan.threads % 32 == 0
+    _covers_once([_fwd_reads(plan, f // 4)], f // 4)
 
 
-@pytest.mark.parametrize("f", WIDTHS)
+@pytest.mark.parametrize("f", WIDTHS + LONG_WIDTHS)
 @pytest.mark.parametrize("b", BATCHES)
 def test_bwd_plan_covers_each_float4_once(b, f):
-    plan = k2.bwd_plan(b, f, N_SM)
-    assert plan.threads % 32 == 0
-    assert 32 <= plan.threads <= k2.BWD_MAX_THREADS
+    plan = k2.bwd_plan(b, f)
+    assert plan.threads == k2.BWD_MAX_THREADS
+    assert plan.chunks == -(-f // (4 * k2.BWD_VEC * plan.threads))
     _covers_once(_bwd_reads(plan, f // 4), f // 4)
 
 
 @pytest.mark.parametrize("f", WIDTHS)
-def test_forced_plans_cover_each_float4_once(f):
-    """The plans chip_smoke times beside the chosen one (every cluster
-    size, every block size), and a row that is not a multiple of a block."""
-    for k in k2.FWD_CLUSTERS:
-        _covers_once(_fwd_reads(k2.fwd_plan(64, f, N_SM, k=k), f // 4),
-                     f // 4)
-    for per in (1024, 512, 256, 128):
-        _covers_once(_bwd_reads(k2.bwd_plan(64, f, N_SM, per=per), f // 4),
-                     f // 4)
+def test_ragged_rows_are_covered_once(f):
+    """A row that is not a multiple of a block, a chunk or a warp."""
     ragged = f + 4 * 37
-    _covers_once(_fwd_reads(k2.fwd_plan(3, ragged, N_SM), ragged // 4),
+    _covers_once([_fwd_reads(k2.fwd_plan(3, ragged), ragged // 4)],
                  ragged // 4)
-    _covers_once(_bwd_reads(k2.bwd_plan(3, ragged, N_SM), ragged // 4),
+    _covers_once(_bwd_reads(k2.bwd_plan(3, ragged), ragged // 4),
                  ragged // 4)
 
 
-@pytest.mark.parametrize("b", BATCHES)
-def test_bwd_plan_gives_every_sm_a_block(b):
-    for f in WIDTHS:
-        plan = k2.bwd_plan(b, f, N_SM)
-        assert b * plan.chunks >= N_SM or plan.threads == 32
-
-
-@pytest.mark.parametrize("f", WIDTHS)
-@pytest.mark.parametrize("k", (1, 2, 4, 8))
-def test_fixed_order_sum_matches_plain(f, k):
-    rng = np.random.default_rng(f + k)
+@pytest.mark.parametrize("f", WIDTHS + LONG_WIDTHS)
+def test_fixed_order_sum_matches_plain(f):
+    rng = np.random.default_rng(f)
     g2 = (rng.standard_normal((3, f)) * 0.01).astype(np.float32)
-    plan = k2.fwd_plan(3, f, N_SM, k=k)
     want = k2.norm_penalty_fwd_plain(torch.from_numpy(g2))[1].numpy()
-    np.testing.assert_allclose(_replay_fwd(g2, plan), want, rtol=1e-6,
-                               atol=0)
+    np.testing.assert_allclose(_replay_fwd(g2, k2.fwd_plan(3, f)), want,
+                               rtol=1e-6, atol=0)
 
 
 def test_plans_refuse_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match=r"\[2, 262148\]"):
-        k2.fwd_plan(2, 262148, N_SM)          # 32 loads a thread
-    with pytest.raises(ValueError, match="cluster of 16"):
-        k2.fwd_plan(64, 8192, N_SM, k=16)
+    with pytest.raises(ValueError, match=r"\[1, 2147483648\]"):
+        k2.fwd_plan(1, 2 ** 31)               # past the kernel's int F
     with pytest.raises(ValueError, match="65535"):
-        k2.bwd_plan(65536, 8192, N_SM)
-    assert k2.fwd_plan(2, 262144, N_SM).vec == 16
+        k2.bwd_plan(65536, 8192)
+    assert k2.fwd_plan(2, 2 ** 31 - 4) == k2.FwdPlan(512, 16)
 
 
 @pytest.mark.parametrize("f", WIDTHS)
