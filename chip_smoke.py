@@ -20,10 +20,22 @@ Needs one CUDA card (exits non-zero without one, and without the
    written as a FORMAT.md checkpoint and exported through the port's CLI
    (65,536 levels at batch 1024); the levels are checked, the kernels'
    launch counters must show every batch went through them, and one batch
-   through the kernels is held against the plain path on the card;
+   through the kernels is held against the plain path on the card; the
+   warm export timed packed and unpacked (identical arrays; the default
+   ``pack=None`` must take the faster), with each batch's device time,
+   wall time, D2H and the native and NumPy unpack times;
+   the repaired export (``--repair --exactly-one``, both placements): one
+   START and one GOAL in every level, every level solvable by the port's
+   solver unless it kept an unreachable GOAL of the raw sample, a NumPy
+   BFS agreeing with the solver on 256 levels, the card's repair of a batch equal to the
+   CPU's bit for bit, levels/s beside the unrepaired export, the solver's
+   dilations and ms a batch, the quality report and KL gate against the
+   corpus; the conditioned export (conditional_32 through the CLI with
+   ``--cond``, ``--calibrated`` and the corpus-mean default: K1 on every
+   stage, the kernel generator against the plain one with a cond);
 5. a torch.profiler breakdown of one export batch (device time by kernel,
-   the port's kernels and PyTorch's own, device idle share) and the host's
-   D2H and unpack times;
+   the port's kernels and PyTorch's own, device idle share) and of a whole
+   streamed ``generate()`` (kernels against wall, the D2H copies);
 6. training kernel parity + timing at the training shapes (B = 64) of
    gumbel_64 and wgan_gp_32: K1 forward, the K1L stage with residuals and
    K1 bwd (whole and by launch, on residuals from K1 forward; at gumbel_64
@@ -52,7 +64,8 @@ Needs one CUDA card (exits non-zero without one, and without the
    and device kernels of one ``NormPenalty.backward`` (only the kernel's
    output may be allocated);
 7. the training paths through ``levelgan_torch.cli.train`` (corpus cut to
-   256 levels): gumbel_64 for 10 steps, wgan_gp_32 with
+   256 levels): gumbel_64 for 10 steps (with the quality probe every 5
+   steps and ``io.keep_best``), wgan_gp_32 with
    ``model.pallas_gp=fused`` for 30 and wgan_gp_32_structural with it for
    10, each with checked metrics, checkpoint keys and launch counters
    (and no call of the plain gn_act_bwd_folded on a CUDA tensor), then
@@ -105,13 +118,22 @@ ATOL, RTOL = 2.0 ** -6, 2.0 ** -6
 # whole-generator check, kernels vs plain on the card, same z and noise
 LOGIT_TOL = 0.05             # max |dlogit| / max |logit|
 TILE_AGREE = 0.97            # share of identical sampled tiles
+# the export's pack=None must pick the faster path, within the spread of
+# host-bound levels/s between runs of one tree (10-25%, PERF.md)
+PACK_SLACK = 0.8
+REPAIR_LEVELS = 16384        # levels per repaired export through the CLI
+COND_LEVELS = 8192           # levels per conditional export through the CLI
+KL_THRESHOLD = 0.01          # printed beside the KL (random weights fail it)
 # training shapes and tolerances
 B_TRAIN = 64                 # train.batch_size of every preset trained here
 WARM_STEPS = 30
 CORPUS_CUT = 256             # data.corpus_size for the smoke run (of 4096)
 FUSED = ("--set", "model.pallas_gp=fused")
+QUALITY_EVERY = 5            # the gumbel_64 run's quality probe, with keep_best
+QUALITY = ("--set", f"io.quality_every={QUALITY_EVERY}", "--set",
+           "io.keep_best=true")
 # the training paths: (preset, CLI overrides, steps)
-TRAIN_RUNS = (("gumbel_64", (), 10), ("wgan_gp_32", FUSED, 30),
+TRAIN_RUNS = (("gumbel_64", QUALITY, 10), ("wgan_gp_32", FUSED, 30),
               ("wgan_gp_32_structural", FUSED, 10))
 # a sum over many bf16 products (dx, dgamma/dbeta): max |diff| / max |ref|
 SUM_TOL = 2.0 ** -6
@@ -592,17 +614,19 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
           f"tile histogram {np.round(hist, 4).tolist()}")
 
     # warm throughput of the same call the CLI makes (the generator built
-    # from the checkpoint's state_dict inside generate), without file I/O
-    _, params = cli.load_generator(ckpt)
+    # from the checkpoint's state_dict inside generate), without file I/O,
+    # packed and unpacked; the CLI's choice must be the faster one
+    from levelgan_torch.export import resolve_pack
     k1.packs = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    generate(cfg, params, n_levels, seed=1, batch_size=batch, device=device)
-    torch.cuda.synchronize()
-    lps = n_levels / (time.perf_counter() - t0)
-    print(f"  warm export: {lps:.1f} levels/s ({n_levels} levels, batch "
-          f"{batch}, generator load, packed D2H + host unpack included; "
-          f"{k1.packs} weight packings)")
+    lps = export_timing(cfg, device, n_levels, batch)
+    chosen = resolve_pack(m, None, device)
+    print(f"  the CLI exports with pack={chosen}: {lps[chosen]:.1f} levels/s "
+          f"against {lps[not chosen]:.1f} (pack={not chosen}); "
+          f"{k1.packs} weight packings in the warm exports (one per stage "
+          "a call: each call builds its generator from the state_dict)")
+    if lps[chosen] < PACK_SLACK * lps[not chosen]:
+        fail(f"the CLI's pack={chosen} is slower than pack={not chosen} by "
+             f"more than the run-to-run spread ({PACK_SLACK})")
     gen = gen.to(device)
 
     # one batch through the kernels vs the plain path, same z and noise
@@ -628,13 +652,349 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     return counts
 
 
+def export_timing(cfg, device, n_levels=N_LEVELS, batch=B, reps=2):
+    """Warm ``generate`` of ``n_levels`` levels with ``pack=True`` and
+    ``pack=False``, alternating, ``reps`` rounds each (the arrays of the
+    two must be identical), and per batch: the device time of one
+    ``generate_batch`` (``queued_ms``), the wall time (whole call / batches),
+    the D2H of one batch into pinned memory, and the host unpack of one
+    packed batch by the NumPy form and the native one (where the package
+    has it).  Uses only ``generate``, ``generate_batch`` and the unpackers,
+    so it also times a tree without the streamed path.  Returns
+    {pack: best levels/s}."""
+    import numpy as np
+    import torch
+    from levelgan_torch import export as ex
+    from levelgan_torch.models import Generator
+
+    m = cfg.model
+    params = Generator(cfg.model).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    gen = ex.make_generator(cfg, params, device)
+    n_batches = -(-n_levels // batch)
+    lps = {True: [], False: []}
+    levels = {}
+    generate = ex.generate
+    for pack in (True, False):          # warm-up: kernels, packings, pins
+        generate(cfg, params, 2 * batch, seed=1, batch_size=batch,
+                 device=device, pack=pack)
+    for _ in range(reps):
+        for pack in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            levels[pack] = generate(cfg, params, n_levels, seed=1,
+                                    batch_size=batch, device=device,
+                                    pack=pack)
+            lps[pack].append(n_levels / (time.perf_counter() - t0))
+    if not np.array_equal(levels[True], levels[False]):
+        fail("packed and unpacked exports gave different levels")
+
+    g = torch.Generator(device).manual_seed(3)
+    z = torch.randn((batch, m.latent_dim), generator=g, device=device)
+    plain_unpack = getattr(ex, "unpack_levels_plain", ex.unpack_levels)
+    try:
+        from levelgan_torch.native.build import unpack_planes
+    except ImportError:
+        unpack_planes = None
+    for pack in (True, False):
+        dev_ms = queued_ms(lambda: ex.generate_batch(          # noqa: B023
+            gen, cfg, z, generator=g, pack=pack), n=10)
+        out = ex.generate_batch(gen, cfg, z, generator=g, pack=pack)
+        pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        d2h = median_ms(lambda: pinned.copy_(out, non_blocking=True))
+        wall = [1e3 / (v / n_levels) / n_batches for v in lps[pack]]
+        line = (f"  pack={pack}: warm export "
+                + " / ".join(f"{v:.1f}" for v in lps[pack])
+                + f" levels/s ({n_levels} levels, batch {batch}); per batch: "
+                f"device {dev_ms:.3f} ms, wall "
+                + " / ".join(f"{v:.3f}" for v in wall)
+                + f" ms, D2H of {out.numel()} bytes into pinned memory "
+                f"{d2h:.3f} ms")
+        if pack:
+            host = pinned.numpy()
+            dst = np.empty((batch, m.level_size, m.level_size), np.uint8)
+            t_np = statistics.median(_host_ms(
+                lambda: plain_unpack(host, m.level_size, out=dst))
+                for _ in range(7))
+            line += f", NumPy unpack {t_np:.3f} ms"
+            if unpack_planes is not None:
+                bits = host.shape[1] * 8 // (m.level_size ** 2)
+                t_c = statistics.median(_host_ms(
+                    lambda: unpack_planes(host, bits, dst)) for _ in range(7))
+                line += f", native unpack {t_c:.3f} ms"
+        print(line, flush=True)
+    return {p: max(v) for p, v in lps.items()}
+
+
+def bfs_solvable(level) -> bool:
+    """An independent check of one level: breadth-first search from the
+    first START (else the centre) through non-WALL cells to a GOAL."""
+    from levelgan_torch.config import GOAL, START, WALL
+    h, w = level.shape
+    starts = list(zip(*(level == START).nonzero()))
+    r, c = (int(starts[0][0]), int(starts[0][1])) if starts else (h // 2,
+                                                                 w // 2)
+    if level[r, c] == WALL:
+        return False
+    seen = {(r, c)}
+    todo = collections.deque([(r, c)])
+    while todo:
+        r, c = todo.popleft()
+        if level[r, c] == GOAL:
+            return True
+        for nr, nc in ((r - 1, c), (r + 1, c), (r, c - 1), (r, c + 1)):
+            if (0 <= nr < h and 0 <= nc < w and (nr, nc) not in seen
+                    and level[nr, nc] != WALL):
+                seen.add((nr, nc))
+                todo.append((nr, nc))
+    return False
+
+
+def export_repair(cfg, device, workdir, n_levels=REPAIR_LEVELS, batch=B):
+    """Phase 4b: the repaired gumbel_64 export through the CLI under both
+    placements with ``--exactly-one``; every level must hold exactly one
+    START and one GOAL, and be solvable unless it kept an unreachable GOAL
+    of the raw sample (repair never moves one; the port's solver on all,
+    a NumPy BFS on 256 must agree with it); the card's repair of one batch must equal the CPU run of
+    the same function on the same tensors; the solver's dilations and ms a
+    batch, levels/s beside the unrepaired export, and the quality report
+    and KL gate against the corpus."""
+    import numpy as np
+    import torch
+    from levelgan_torch.cli import export as cli
+    from levelgan_torch.config import GOAL
+    from levelgan_torch.data.dataset import LevelDataset
+    from levelgan_torch.env.solver import (CHECK_EVERY, reachable_steps,
+                                           solvable, well_formed)
+    from levelgan_torch.export import generate, generate_batch, make_generator
+    from levelgan_torch.lio.checkpoint import save_checkpoint
+    from levelgan_torch.lio.quality import quality_report
+    from levelgan_torch.lio.stats import kl_gate, per_position_chi2
+    from levelgan_torch.models import Generator
+    from levelgan_torch.ops.repair import ensure_start_goal
+
+    m = cfg.model
+    gen0 = Generator(cfg.model).init_params(torch.Generator().manual_seed(0))
+    ckpt = save_checkpoint(os.path.join(workdir, "ckpt_repair"), gen0, cfg)
+    params = gen0.state_dict()
+    data = cfg.data.__class__(**{**cfg.data.__dict__,
+                                 "corpus_size": CORPUS_CUT})
+    ref = LevelDataset.from_config(data, m, seed=cfg.train.seed).levels
+    ref_counts = np.bincount(ref.reshape(-1), minlength=m.n_tiles)
+    raw = generate(cfg, params, n_levels, seed=0, batch_size=batch,
+                   device=device, repair=False)
+    lps = {}
+    for placement in ("confidence", "uniform"):
+        out = os.path.join(workdir, f"repaired_{placement}.npz")
+        if cli.main(["--ckpt", ckpt, "--n", str(n_levels), "--batch",
+                     str(batch), "--out", out, "--seed", "0", "--repair",
+                     "--repair-placement", placement,
+                     "--exactly-one"]) != 0:
+            fail(f"repaired export ({placement}) returned non-zero")
+        levels = np.load(out)["levels"]
+        t = torch.from_numpy(levels).to(device)
+        wf = well_formed(t)
+        sol = solvable(t).cpu().numpy()
+        # the NumPy BFS on every unsolvable level and the first solvable ones
+        pick = np.concatenate([np.nonzero(~sol)[0], np.nonzero(sol)[0]])[:256]
+        bfs = np.array([bfs_solvable(levels[i]) for i in pick])
+        # repair never moves an existing GOAL: an unsolvable level must keep
+        # a GOAL the raw sample (the same seed, repair off) had, which no
+        # reachable GOAL replaced
+        bad = np.nonzero(~sol)[0]
+        kept = all(raw[i][levels[i] == GOAL].item() == GOAL for i in bad)
+        print(f"  {placement}: {n_levels} levels, one START "
+              f"{int(wf['one_start'].sum())}, one GOAL "
+              f"{int(wf['one_goal'].sum())}, solvable by the port's solver "
+              f"{int(sol.sum())} (the {len(bad)} others keep an unreachable "
+              f"GOAL of the raw sample: {kept}); the NumPy BFS agrees on "
+              f"{int((bfs == sol[pick]).sum())} of {len(pick)}")
+        if not (wf["one_start"].all() and wf["one_goal"].all() and kept
+                and np.array_equal(bfs, sol[pick])):
+            fail(f"repaired export ({placement}): a level without exactly one "
+                 "START and GOAL, a placed GOAL that is unreachable, or the "
+                 "solver disagrees with the BFS")
+        rep = quality_report(levels, m.n_tiles, device=device)
+        gate = kl_gate(levels, ref_counts, m.n_tiles, KL_THRESHOLD)
+        chi2 = per_position_chi2(levels, ref, m.n_tiles,
+                                 {"structural": (2, 3)})
+        print(f"    quality {json.dumps(rep)}; kl_gate against the "
+              f"{CORPUS_CUT}-level corpus {json.dumps(gate)}; chi2/dof "
+              f"{chi2['chi2_per_dof_mean']:.4g}, structural "
+              f"{chi2['chi2_per_dof_structural']:.4g} (random weights: the "
+              "gates are printed, not held)")
+        for rep_on in (False, True):
+            generate(cfg, params, 2 * batch, seed=1, batch_size=batch,
+                     device=device, repair=rep_on, repair_placement=placement)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(cfg, params, n_levels, seed=1, batch_size=batch,
+                     device=device, repair=rep_on, repair_placement=placement,
+                     exactly_one=rep_on)
+            lps[(placement, rep_on)] = n_levels / (time.perf_counter() - t0)
+        print(f"    warm export {lps[(placement, True)]:.1f} levels/s "
+              f"repaired, {lps[(placement, False)]:.1f} unrepaired "
+              f"({n_levels} levels, batch {batch})")
+
+    # one batch: the card's repair against the CPU's, bit for bit; the
+    # solver's dilations and time on the card
+    gen = make_generator(cfg, params, device)
+    g = torch.Generator(device).manual_seed(11)
+    z = torch.randn((batch, m.latent_dim), generator=g, device=device)
+    with torch.inference_mode():
+        logits = gen(z)
+        ids = generate_batch(gen, cfg, z, generator=g)
+    scores = tuple(torch.rand((batch, m.level_size ** 2), generator=g,
+                              device=device) for _ in range(2))
+    target = torch.rand(batch, generator=g, device=device)
+    for placement, td in (("confidence", None), ("uniform", None),
+                          ("uniform", target)):
+        for one in (False, True):
+            kw = dict(placement=placement, exactly_one=one, scores=scores)
+            with torch.inference_mode():       # as the export runs it
+                on_card = ensure_start_goal(ids, logits, target_dist=td, **kw)
+                on_cpu = ensure_start_goal(
+                    ids.cpu(), logits.cpu(),
+                    target_dist=None if td is None else td.cpu(),
+                    **{**kw, "scores": tuple(x.cpu() for x in scores)})
+            if not torch.equal(on_card.cpu(), on_cpu):
+                fail(f"repair on the card differs from the CPU's "
+                     f"({placement}, exactly_one={one}, target "
+                     f"{td is not None})")
+    print("  one batch repaired on the card equals the CPU run bit for bit "
+          "(confidence, uniform, uniform with target_dist; exactly_one off "
+          "and on)")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, steps = reachable_steps(ids)
+        times.append(1e3 * (time.perf_counter() - t0))
+    rep_ms = []
+    for placement in ("confidence", "uniform"):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ensure_start_goal(ids, logits, placement=placement,
+                              exactly_one=True, scores=scores)
+            torch.cuda.synchronize()
+            rep_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"  solver on one {batch}-level batch: {steps} dilations (a test "
+          f"every {CHECK_EVERY}), {statistics.median(times):.3f} ms (wall, median of "
+          f"5); the whole repair {statistics.median(rep_ms[:5]):.3f} ms "
+          f"confidence, {statistics.median(rep_ms[5:]):.3f} ms uniform")
+    return lps
+
+
+def export_cond(device, workdir, n_levels=COND_LEVELS, batch=B):
+    """Phase 4c: conditional_32 with seeded random weights through the
+    CLI with ``--cond``, with ``--calibrated`` (a calibration JSON written
+    here) and with the corpus-mean default (``data.corpus_size`` cut to
+    ``CORPUS_CUT``); K1 runs on all three stages (3 launches a batch); the
+    kernel generator against the plain one with a cond."""
+    import numpy as np
+    import torch
+    from levelgan_torch.cli import export as cli
+    from levelgan_torch.config import preset
+    from levelgan_torch.data.dataset import LevelDataset
+    from levelgan_torch.data.features import (FEATURE_NAMES,
+                                              corpus_mean_cond,
+                                              level_features)
+    from levelgan_torch.export import generate_batch, make_generator
+    from levelgan_torch.kernels import upsample_block as k1
+    from levelgan_torch.kernels import upsample_rows as k1l
+    from levelgan_torch.lio.calibration import (apply_calibration,
+                                                fit_from_sweeps,
+                                                save_calibration)
+    from levelgan_torch.lio.checkpoint import save_checkpoint
+    from levelgan_torch.models import Generator
+
+    cfg = preset("conditional_32").override(**{
+        "data.corpus_size": CORPUS_CUT})
+    m = cfg.model
+    gen0 = Generator(m).init_params(torch.Generator().manual_seed(0))
+    ckpt = save_checkpoint(os.path.join(workdir, "ckpt_cond"), gen0, cfg)
+    internal = np.linspace(-1.0, 1.0, 9)
+    cal = fit_from_sweeps(FEATURE_NAMES, {
+        "hazard_frac": {"internal": internal,
+                        "realized": 0.03 * internal + 0.05},
+        "goal_dist": {"internal": internal,
+                      "realized": 0.3 * internal + 0.4}})
+    save_calibration(ckpt, cal)
+    req = "0.25,0.06,0.07,0.5"
+    n_batches = -(-n_levels // batch)
+    feats = {}
+    for name, extra in (("--cond", ["--cond", req]),
+                        ("--cond --calibrated", ["--cond", req,
+                                                 "--calibrated"]),
+                        ("corpus-mean default", [])):
+        out = os.path.join(workdir, "cond.npz")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--ckpt", ckpt, "--n", str(n_levels), "--batch",
+                       str(batch), "--out", out, "--seed", "0", *extra])
+        wall = time.perf_counter() - t0
+        counts = {"K1": k1.launches, "K1L": k1l.launches}
+        if rc != 0:
+            fail(f"conditional export ({name}) returned {rc}")
+        levels = np.load(out)["levels"]
+        if (levels.shape != (n_levels, m.level_size, m.level_size)
+                or int(levels.max()) >= m.n_tiles):
+            fail(f"conditional export ({name}): {levels.shape} max "
+                 f"{int(levels.max())}")
+        if counts != {"K1": 3 * n_batches, "K1L": 0}:
+            fail(f"conditional export ({name}) launches {counts}, expected "
+                 f"K1 {3 * n_batches} (3 stages x {n_batches} batches)")
+        feats[name] = level_features(torch.from_numpy(levels).to(
+            device)).mean(0).cpu().numpy()
+        print(f"  {name}: {n_levels} levels in {wall:.3f} s (wall, corpus "
+              f"and checkpoint load included), launches {counts}, realized "
+              f"features {np.round(feats[name], 4).tolist()}")
+    ds = LevelDataset.from_config(cfg.data, m, seed=cfg.train.seed)
+    mean = corpus_mean_cond(cfg, ds, device)
+    want = apply_calibration(cal, np.array([float(x) for x in
+                                            req.split(",")], np.float32))
+    print(f"  the corpus-mean cond ({CORPUS_CUT} levels, data.corpus_size "
+          f"cut from 4096) {np.round(mean, 4).tolist()}; the calibrated "
+          f"request {req} -> {np.round(want, 4).tolist()}")
+
+    gen = make_generator(cfg, gen0.state_dict(), device)
+    g = torch.Generator(device).manual_seed(7)
+    z = torch.randn((batch, m.latent_dim), generator=g, device=device)
+    cond = torch.as_tensor(want, device=device).expand(batch, m.cond_dim)
+    from levelgan_torch.ops.gumbel import gumbel_noise
+    noise = gumbel_noise((batch, m.level_size, m.level_size, m.n_tiles),
+                         device=device, generator=g)
+    with torch.inference_mode():
+        lk = gen(z, cond)
+        lp = gen(z, cond, plain=True)
+        ids_k = generate_batch(gen, cfg, z, cond, noise=noise)
+        ids_p = generate_batch(gen, cfg, z, cond, noise=noise, plain=True)
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    agree = float((ids_k == ids_p).float().mean())
+    print(f"  kernels vs plain conditional generator on the card: "
+          f"max|dlogit|/max|logit|={rel:.4g} (tol {LOGIT_TOL}), tile "
+          f"agreement={agree:.5f} (>= {TILE_AGREE})")
+    if not (torch.isfinite(lk).all() and rel <= LOGIT_TOL
+            and agree >= TILE_AGREE):
+        fail("the conditional kernel generator disagrees with the plain one")
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def profile_export(cfg, device, batches=4):
     """Phase 5: where one export batch's time goes (torch.profiler device
-    time by kernel, device busy share, host-side D2H and unpack)."""
+    time by kernel, device busy share) on the path ``generate`` takes
+    (``pack=None``); the host's D2H and unpack are timed by
+    ``export_timing``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from levelgan_torch.export import (generate_batch, make_generator,
-                                       unpack_levels)
+                                       resolve_pack)
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.models import Generator
 
@@ -645,14 +1005,15 @@ def profile_export(cfg, device, batches=4):
     g = torch.Generator(device).manual_seed(3)
     zs = [torch.randn((B, m.latent_dim), generator=g, device=device)
           for _ in range(batches + 1)]
-    generate_batch(gen, cfg, zs[-1], generator=g, pack=True)   # warm-up
+    pack = resolve_pack(m, None, device)
+    generate_batch(gen, cfg, zs[-1], generator=g, pack=pack)   # warm-up
     torch.cuda.synchronize()
     k1.packs = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for z in zs[:batches]:
-            generate_batch(gen, cfg, z, generator=g, pack=True)
+            generate_batch(gen, cfg, z, generator=g, pack=pack)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / batches
     if k1.packs:
@@ -663,7 +1024,8 @@ def profile_export(cfg, device, batches=4):
         print("  profiler recorded no device kernels: breakdown not measured")
         return
     busy_ms = sum(dev_us(e) for e in rows) / 1e3 / batches
-    print(f"  per batch ({B} levels): wall {wall_ms:.3f} ms (profiled), "
+    print(f"  per batch ({B} levels, pack={pack}): wall {wall_ms:.3f} ms "
+          f"(profiled), "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for e in rows[:24]:
@@ -676,16 +1038,24 @@ def profile_export(cfg, device, batches=4):
           f"{sum(e.count for e in native) // batches} launches, "
           f"{sum(dev_us(e) for e in native) / 1e3 / batches:.3f} ms")
 
-    packed = generate_batch(gen, cfg, zs[0], generator=g, pack=True)
+    # the whole streamed generate(): device busy against its wall time
+    from levelgan_torch.export import generate
+    params = gen.state_dict()
+    n = 8 * B
+    generate(cfg, params, n, seed=2, batch_size=B, device=device)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host = packed.cpu().numpy()
-    t_d2h = 1e3 * (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    unpack_levels(host, m.level_size)
-    t_unpack = 1e3 * (time.perf_counter() - t0)
-    print(f"  host per batch: D2H of {host.nbytes} packed bytes "
-          f"{t_d2h:.3f} ms, NumPy unpack {t_unpack:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(cfg, params, n, seed=2, batch_size=B, device=device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = device_rows(prof)
+    copies = sum(dev_us(e) for e in rows if "Memcpy" in e.key) / 1e3
+    busy = sum(dev_us(e) for e in rows if "Memcpy" not in e.key) / 1e3
+    print(f"  the whole generate() of {n} levels (pack={pack}): wall "
+          f"{wall_ms:.3f} ms (profiled), kernels {busy:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}; D2H copies {copies:.3f} ms "
+          "on the copy engine beside them")
 
 
 def errs_of(names, got, want, tol):
@@ -1506,13 +1876,21 @@ def train_path(name, overrides, steps, workdir):
     if any(on_card):
         fail(f"gn_act_bwd_folded ran on CUDA tensors {sum(on_card)} times")
     expect = {k: steps * v for k, v in PER_STEP[name].items()}
+    probes = steps // QUALITY_EVERY if overrides == QUALITY else 0
+    if probes:
+        # each probe is a forward of the EMA generator: one launch a stage
+        from levelgan_torch.kernels import upsample_block as k1
+        fits = [k1.fits(h, h) for _, h, _, _ in stage_shapes(preset(name))]
+        expect["K1"] += probes * sum(fits)
+        expect["K1L"] += probes * (len(fits) - sum(fits))
     print(f"  trained {steps} steps through the CLI in {wall:.3f} s "
           f"(wall, incl. corpus carving and checkpoint); launches {counts}; "
           f"gn_act_bwd_folded on CUDA tensors: {sum(on_card)} times")
     if counts != expect:
         fail(f"training launches {counts} != expected {expect}")
     with open(os.path.join(out, "metrics.jsonl")) as fh:
-        lines = [json.loads(s) for s in fh.read().splitlines()]
+        recs = [json.loads(s) for s in fh.read().splitlines()]
+    lines = [r for r in recs if "d_loss" in r]
     if [r["step"] for r in lines] != list(range(10, steps + 1, 10)):
         fail(f"metrics.jsonl steps {[r['step'] for r in lines]}")
     keys = ["d_loss", "g_loss", "gp", "wdist", "kl", "step_ms"]
@@ -1524,6 +1902,19 @@ def train_path(name, overrides, steps, workdir):
                 fail(f"metrics line {r}: {k} not finite")
         print(f"  metrics step {r['step']}: "
               + " ".join(f"{k}={r[k]:.5g}" for k in keys))
+    if probes:
+        q = [r for r in recs if "solvable_frac" in r]
+        qkeys = ("solvable_frac", "has_start_frac", "has_goal_frac")
+        if [r["step"] for r in q] != list(range(QUALITY_EVERY, steps + 1,
+                                                 QUALITY_EVERY)) or not all(
+                0.0 <= r[k] <= 1.0 for r in q for k in qkeys):
+            fail(f"quality probe lines {q}")
+        best = os.listdir(os.path.join(out, "ckpt_best"))
+        if len(best) != 1:
+            fail(f"ckpt_best holds {best}")
+        print("  quality probe: " + "; ".join(
+            f"step {r['step']} " + " ".join(f"{k}={r[k]:.4g}" for k in qkeys)
+            for r in q) + f"; ckpt_best/{best[0]}")
     ckpt = os.path.join(out, "ckpt", f"step_{steps:08d}")
     arrays = np.load(os.path.join(ckpt, "arrays.npz")).files
     for prefix in ("generator/", "g_ema/", "discriminator/"):
@@ -1918,8 +2309,9 @@ def kernels_line(records, counts, train_records, train_counts):
     return {"kernels": out}
 
 
-PHASES = ("build", "parity", "export", "export_profile", "train_parity",
-          "k2_core", "train", "train_check", "train_profile", "repro")
+PHASES = ("build", "parity", "export", "export_repair", "export_cond",
+          "export_profile", "train_parity", "k2_core", "train", "train_check",
+          "train_profile", "repro")
 
 
 def main(argv=()) -> int:
@@ -1987,6 +2379,14 @@ def main(argv=()) -> int:
         if phase("export"):
             print("export path: gumbel_64 export through the port's CLI")
             counts = main_path(cfg, device, workdir)
+        if phase("export_repair"):
+            print("repaired export: gumbel_64 through the CLI with --repair "
+                  "--exactly-one under both placements")
+            export_repair(cfg, device, workdir)
+        if phase("export_cond"):
+            print("conditioned export: conditional_32 through the CLI with "
+                  "--cond, --calibrated and the corpus-mean default")
+            export_cond(device, workdir)
         if phase("export_profile"):
             print("profile: one export batch")
             profile_export(cfg, device)

@@ -10,6 +10,11 @@ go to ``metrics.jsonl`` every ``io.log_every`` steps (with the window's
 tile-histogram ``kl`` against the corpus and ``step_ms``), checkpoints
 every ``io.ckpt_every`` steps and at the end, with the whole state (the
 optimizers in optax's layout), so that the JAX package can load them.
+Every ``io.quality_every`` steps a quality probe samples ``io.quality_n``
+levels from the EMA generator and logs ``solvable_frac``,
+``has_start_frac`` and ``has_goal_frac`` (the flood fill on the device;
+three floats cross to the host); with ``io.keep_best`` the state of the
+best ``solvable_frac`` so far is kept in ``ckpt_best/``.
 
 The port runs eagerly on one device, so ``train.steps_per_dispatch`` (how
 many jitted steps the JAX package scans per dispatch) has no meaning here
@@ -17,10 +22,9 @@ and is ignored, as are ``io.compile_cache`` (XLA's cache) and
 ``data.feed`` (the corpus is always on the device).
 
 Not in this slice, each raising ``NotImplementedError`` rather than being
-skipped: ``io.resume`` (reading the state back), ``io.quality_every``
-and ``io.render_every`` (quality probes and PNG renders), ``io.profile``
-and ``io.tensorboard``, the BCE GAN and curriculum losses, conditional
-models and the track family.
+skipped: ``io.resume`` (reading the state back), ``io.render_every``
+(PNG renders), ``io.profile`` and ``io.tensorboard``, the BCE GAN and
+curriculum losses, conditional models and the track family.
 """
 
 from __future__ import annotations
@@ -32,14 +36,18 @@ import numpy as np
 import torch
 
 from levelgan_torch.config import Config
+from levelgan_torch.data.codec import decode
 from levelgan_torch.data.dataset import LevelDataset
 from levelgan_torch.device import resolve_device
 from levelgan_torch.lio.checkpoint import save_checkpoint
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
+from levelgan_torch.lio.quality import playability
+from levelgan_torch.models import sample_head
 from levelgan_torch.train.state import create_state
 from levelgan_torch.train.wgan_gp import make_wgan_gp_step
 
 _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
+_PROBE_TAG = 0x9B0BE         # the quality probe's stream
 
 
 def _not_ported(cfg: Config) -> None:
@@ -47,8 +55,6 @@ def _not_ported(cfg: Config) -> None:
     later = [
         (io.resume, "io.resume needs the optimizer states read back from "
                     "the full-state checkpoint"),
-        (io.quality_every, "io.quality_every needs the solver and "
-                           "lio/quality.py (curriculum and quality items)"),
         (io.render_every, "io.render_every (PNG renders during training) "
                           "comes with the full-state checkpoint and resume"),
         (io.profile, "io.profile (a profiler trace of the run) comes with "
@@ -68,11 +74,38 @@ def _not_ported(cfg: Config) -> None:
         raise ValueError(f"unknown loss '{t.loss}'")
 
 
-def step_generator(cfg: Config, step: int, device) -> torch.Generator:
-    """The generator of train step ``step``: seeded by (train.seed, step)."""
-    seed = np.random.SeedSequence([cfg.train.seed, _DATA_TAG, step])
+def _seeded(device, *words) -> torch.Generator:
+    seed = np.random.SeedSequence(list(words))
     return torch.Generator(device).manual_seed(
         int(seed.generate_state(1, np.uint64)[0]))
+
+
+def step_generator(cfg: Config, step: int, device) -> torch.Generator:
+    """The generator of train step ``step``: seeded by (train.seed, step)."""
+    return _seeded(device, cfg.train.seed, _DATA_TAG, step)
+
+
+def make_quality_probe(cfg: Config, n: int):
+    """The training-time playability probe (``io.quality_every``):
+    ``probe(gen, generator, cond=None)`` samples ``n`` fresh levels from
+    ``gen`` as the export does and reduces them on the device to the
+    solvable, has-START and has-GOAL shares (0-d tensors)."""
+    m = cfg.model
+    head = "gumbel" if m.head == "gumbel" else "argmax"
+
+    @torch.no_grad()
+    def probe(gen, generator: torch.Generator, cond=None) -> dict:
+        dev = next(gen.parameters()).device
+        z = torch.randn((n, m.latent_dim), generator=generator, device=dev)
+        logits = gen(z, cond)
+        ids = decode(sample_head(logits, head, tau=m.tau_end,
+                                 structural=m.structural_head,
+                                 generator=generator))
+        shares = playability(ids)
+        return {k: shares[k] for k in ("solvable_frac", "has_start_frac",
+                                       "has_goal_frac")}
+
+    return probe
 
 
 def sample_batch(corpus: torch.Tensor, cfg: Config,
@@ -93,7 +126,8 @@ def save_state(ckpt_dir: str, state, cfg: Config, step: int,
 
 
 def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
-    """Run training per ``cfg``; returns ``{checkpoint, kl, metrics}``."""
+    """Run training per ``cfg``; returns ``{checkpoint, kl, metrics}``
+    (and ``best``, the ``ckpt_best/`` checkpoint, under ``io.keep_best``)."""
     _not_ported(cfg)
     dev = resolve_device(device)
     step_fn = make_wgan_gp_step(cfg)
@@ -113,6 +147,13 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
         n_d = sum(p.numel() for p in state.critic.parameters())
         print(f"[levelgan_torch] preset={cfg.preset} loss=wgan_gp "
               f"device={dev} G params={n_g:,} D params={n_d:,}")
+    quality_probe = (make_quality_probe(cfg, io.quality_n)
+                     if io.quality_every else None)
+    # conditional probes ask for 0.25 in every feature, as the JAX package's
+    probe_cond = (torch.full((io.quality_n, cfg.model.cond_dim), 0.25,
+                             device=dev)
+                  if io.quality_every and cfg.model.cond_dim else None)
+    best_solvable, best = -1.0, None
     gen_hist = torch.zeros(cfg.model.n_tiles, device=dev)
     kl, last_metrics = float("nan"), {}
     t_last, last_i = time.monotonic(), 0
@@ -130,9 +171,24 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
                     i + 1, **metrics, kl=kl,
                     step_ms=1e3 * (now - t_last) / (i + 1 - last_i))
                 t_last, last_i = now, i + 1
+            if crossed(io.quality_every, i, i + 1):
+                q = {k: float(v) for k, v in quality_probe(
+                    state.g_ema, _seeded(dev, cfg.train.seed, _PROBE_TAG,
+                                         i + 1), probe_cond).items()}
+                logger.log(i + 1, **q)
+                if io.keep_best and q["solvable_frac"] > best_solvable:
+                    best_solvable = q["solvable_frac"]
+                    best = save_state(os.path.join(io.out_dir, "ckpt_best"),
+                                      state, cfg, i + 1, 1)
+                    if echo:
+                        print(f"[levelgan_torch] new best solvable_frac="
+                              f"{best_solvable:.3f} -> {best}")
             if crossed(io.ckpt_every, i, i + 1) and i + 1 < steps:
                 save_state(ckpt_dir, state, cfg, i + 1, io.keep_ckpts)
     finally:
         logger.close()
     final = save_state(ckpt_dir, state, cfg, state.step, io.keep_ckpts)
-    return {"checkpoint": final, "kl": kl, "metrics": last_metrics}
+    out = {"checkpoint": final, "kl": kl, "metrics": last_metrics}
+    if best is not None:
+        out["best"] = best
+    return out

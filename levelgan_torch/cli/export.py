@@ -4,8 +4,11 @@ Port of ``levelgan/cli/export.py`` for tile models: loads a FORMAT.md
 checkpoint written by either package (EMA generator weights first),
 generates on the GPU (``--device cpu`` for the plain CPU path), and writes
 ``.npz`` (uint8 ``levels``), ``.txt`` (ascii) or ``.png``.  Prints
-levels/sec.  ``--repair`` and ``--calibrated`` raise until their slice is
-ported.
+levels/sec.  ``--repair`` / ``--repair-placement`` / ``--exactly-one``
+repair START and GOAL on the device; a conditional model takes ``--cond``
+(default: the corpus-mean feature vector) and ``--calibrated`` maps it
+through the checkpoint's ``cond_calibration.json``.  Track checkpoints
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import time
 import numpy as np
 
 from levelgan_torch.config import Config
+from levelgan_torch.data.dataset import LevelDataset
+from levelgan_torch.data.features import corpus_mean_cond
 from levelgan_torch.device import resolve_device
 from levelgan_torch.export import generate
+from levelgan_torch.lio.calibration import apply_calibration, load_calibration
 from levelgan_torch.lio.checkpoint import all_checkpoints, load_generator_params
 
 ASCII_TILES = ".#SGXo~*"
@@ -103,19 +109,34 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch path)")
+    ap.add_argument("--repair-placement", default=None,
+                    choices=("confidence", "uniform"),
+                    help="repair cell choice: the generator's most "
+                         "confident valid cell, or a uniform sample over "
+                         "the valid cells (the corpus's placement law). "
+                         "Default: cfg.io.export_repair_placement.")
     ap.add_argument("--repair", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="export repair: not ported yet; --repair raises, "
-                         "the default and --no-repair export the raw sample")
+                    help="place missing START/GOAL tiles, GOAL inside "
+                         "START's reachable component (ops/repair.py). "
+                         "Default: cfg.io.export_repair ('auto' = off for "
+                         "tiles); --no-repair exports the raw sample.")
+    ap.add_argument("--exactly-one", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="with repair: also demote duplicate START/GOAL "
+                         "tiles, so each level has exactly one of each. "
+                         "Default: cfg.io.export_exactly_one ('auto' = on "
+                         "when repairing).")
     ap.add_argument("--calibrated", action="store_true",
-                    help="condition calibration: not ported yet (raises)")
+                    help="map --cond through the checkpoint's "
+                         "cond_calibration.json (lio/calibration.py)")
     args = ap.parse_args(argv)
 
-    if args.calibrated:
-        raise NotImplementedError(
-            "--calibrated (lio/calibration.py) is not ported yet")
     device = resolve_device(args.device)
     cfg, params = load_generator(args.ckpt)
+    if cfg.model.family != "tile":
+        raise NotImplementedError(
+            "track-family export is not ported yet (the track slice)")
     cond = None
     if args.cond is not None:
         cond = np.array([float(x) for x in args.cond.split(",")], np.float32)
@@ -123,13 +144,20 @@ def main(argv=None):
             raise SystemExit(f"--cond needs {cfg.model.cond_dim} values, "
                              f"got {cond.size}")
     elif cfg.model.cond_dim:
-        raise SystemExit("conditional model: pass --cond (the corpus-mean "
-                         "default needs the data tier, not ported yet)")
+        # default request: the whole corpus's mean feature vector
+        ds = LevelDataset.from_config(cfg.data, cfg.model,
+                                      seed=cfg.train.seed)
+        cond = corpus_mean_cond(cfg, ds, device)
+    if args.calibrated:
+        if cond is None:
+            raise SystemExit("--calibrated requires a conditional model")
+        cond = apply_calibration(load_calibration(args.ckpt), cond)
 
     t0 = time.perf_counter()
     levels = generate(cfg, params, args.n, seed=args.seed,
                       batch_size=args.batch, cond=cond, repair=args.repair,
-                      device=device)
+                      repair_placement=args.repair_placement,
+                      exactly_one=args.exactly_one, device=device)
     dt = time.perf_counter() - t0
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -121,18 +121,70 @@ def test_export_policy_and_wire_format_match_jax():
         assert texport.packed_bytes(tcfg.model) == j_packed_bytes(jcfg.model)
 
 
-def test_repair_and_track_raise_not_implemented():
+def test_repair_and_track_raise_not_implemented(tmp_path):
+    from levelgan_torch.cli import export as cli
     _, tcfg = _cfgs()
     gen = Generator(tcfg.model)
-    with pytest.raises(NotImplementedError, match="repair"):
-        texport.generate(tcfg, gen, 4, repair=True, device="cpu")
-    on = Config.from_dict({**tcfg.to_dict(),
-                           "io": {**tcfg.to_dict()["io"], "export_repair": "on"}})
-    with pytest.raises(NotImplementedError, match="repair"):
-        texport.generate(on, gen, 4, device="cpu")
     track = Config.from_dict(j_preset("racetrack_32").to_dict())
     with pytest.raises(NotImplementedError, match="track"):
         texport.generate(track, gen, 4, device="cpu")
+    # the CLI on a track checkpoint, with the repair flags it also takes
+    ckpt = save_checkpoint(str(tmp_path), gen, track, step=1)
+    with pytest.raises(NotImplementedError, match="track"):
+        cli.main(["--ckpt", ckpt, "--n", "2", "--out",
+                  str(tmp_path / "t.npz"), "--device", "cpu", "--repair"])
+
+
+def test_repair_runs_by_flag_and_by_config_policy():
+    from levelgan_torch.env.solver import solvable, well_formed
+    _, tcfg = _cfgs()
+    gen = Generator(tcfg.model).init_params(torch.Generator().manual_seed(2))
+    on = tcfg.override(**{"io.export_repair": "on"})
+    for cfg, repair in ((tcfg, True), (on, None)):
+        levels = torch.from_numpy(texport.generate(
+            cfg, gen, 6, repair=repair, device="cpu", batch_size=4))
+        wf = well_formed(levels)
+        # exactly_one follows the policy: 'auto' = on when repairing
+        assert wf["one_start"].all() and wf["one_goal"].all()
+        assert solvable(levels).all()
+
+
+def _parent_loop(cfg, gen, n, seed, batch_size, pack):
+    """The export loop as it was before the streamed host path: every
+    batch's z and noise from one generator, concatenated, then unpacked."""
+    rng = torch.Generator("cpu").manual_seed(seed)
+    chunks = []
+    for _ in range(0, n, batch_size):
+        z = torch.randn((batch_size, cfg.model.latent_dim), generator=rng)
+        chunks.append(texport.generate_batch(gen, cfg, z, generator=rng,
+                                             pack=pack))
+    host = torch.cat(chunks).numpy()
+    side = cfg.model.level_size
+    levels = (texport.unpack_levels_plain(host, side) if pack
+              else host.reshape(-1, side, side))
+    return levels[:n]
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_fixed_seed_export_equals_the_unstreamed_loop(pack):
+    _, tcfg = _cfgs()
+    gen = Generator(tcfg.model).init_params(torch.Generator().manual_seed(1))
+    got = texport.generate(tcfg, gen, 11, seed=5, batch_size=4, pack=pack,
+                           repair=False, device="cpu")
+    want = _parent_loop(tcfg, gen, 11, 5, 4, pack)
+    assert got.shape == (11, 16, 16)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pack_none_resolves_per_device():
+    _, tcfg = _cfgs()
+    m = tcfg.model
+    assert texport.resolve_pack(m, None, torch.device("cpu"))
+    assert (texport.resolve_pack(m, None, torch.device("cuda"))
+            == texport.PACK_ON_CUDA)
+    with pytest.raises(ValueError, match="packing"):
+        texport.resolve_pack(tcfg.override(**{"model.n_tiles": 200}).model,
+                             True, torch.device("cpu"))
 
 
 def test_jax_checkpoint_exports_through_port_cli(tmp_path):

@@ -20,7 +20,11 @@ _MODULES = [
     "levelgan_torch.lio.metrics", "levelgan_torch.train.state",
     "levelgan_torch.train.gan", "levelgan_torch.train.wgan_gp",
     "levelgan_torch.api", "levelgan_torch.cli.train",
-    "levelgan_torch.kernels.critic_grad", "chip_smoke",
+    "levelgan_torch.kernels.critic_grad", "levelgan_torch.native.build",
+    "levelgan_torch.env.sim", "levelgan_torch.env.solver",
+    "levelgan_torch.ops.repair", "levelgan_torch.data.features",
+    "levelgan_torch.lio.calibration", "levelgan_torch.lio.stats",
+    "levelgan_torch.lio.quality", "chip_smoke",
 ]
 
 

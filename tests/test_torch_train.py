@@ -264,7 +264,8 @@ def test_step_raises_for_later_slices(override, match):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"io.resume": True}, "resume"), ({"io.quality_every": 10}, "quality"),
+    ({"io.resume": True}, "resume"),
+    ({"train.loss": "curriculum"}, "curriculum"),
     ({"io.render_every": 10}, "render"), ({"io.profile": True}, "profile"),
     ({"io.tensorboard": True}, "tensorboard"), ({"train.loss": "gan"}, "BCE"),
 ])
