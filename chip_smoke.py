@@ -37,7 +37,8 @@ Needs one CUDA card (exits non-zero without one, and without the
    the port's kernels and PyTorch's own, device idle share) and of a whole
    streamed ``generate()`` (kernels against wall, the D2H copies);
 6. training kernel parity + timing at the training shapes (B = 64) of
-   gumbel_64 and wgan_gp_32: K1 forward, the K1L stage with residuals and
+   gumbel_64, wgan_gp_32 and toy_dcgan_16 (K1 at its two stages): K1
+   forward, the K1L stage with residuals and
    K1 bwd (whole and by launch, on residuals from K1 forward; at gumbel_64
    up2 the dx launch also at several placements of its buffers) at every
    stage they serve,
@@ -66,10 +67,13 @@ Needs one CUDA card (exits non-zero without one, and without the
 7. the training paths through ``levelgan_torch.cli.train`` (corpus cut to
    256 levels): gumbel_64 for 10 steps (with the quality probe every 5
    steps and ``io.keep_best``), wgan_gp_32 with
-   ``model.pallas_gp=fused`` for 30 and wgan_gp_32_structural with it for
-   10, each with checked metrics, checkpoint keys and launch counters
-   (and no call of the plain gn_act_bwd_folded on a CUDA tensor), then
-   1,024 levels exported from each checkpoint;
+   ``model.pallas_gp=fused`` for 30, wgan_gp_32_structural with it for
+   10, toy_dcgan_16 (the BCE GAN step; the CLI's default preset, run
+   without ``--preset``) for its 100 and conditional_32 (the conditional
+   WGAN-GP step with the cond-match loss) for 10, each with checked
+   metrics, checkpoint keys and launch counters (and no call of the plain
+   gn_act_bwd_folded on a CUDA tensor), then 1,024 levels exported from
+   each checkpoint;
 8. one critic iteration and one generator update through the kernels held
    against the plain path (``plain=True``, plain GP) on the same state,
    batch and noise, at gumbel_64 (K2 core) and at wgan_gp_32 (fused GP):
@@ -81,7 +85,15 @@ Needs one CUDA card (exits non-zero without one, and without the
    kernel, idle share, host time by op), for both configurations;
 10. reproducibility: two seeded 3-step gumbel_64 runs through
     ``api.train``, by default and under ``torch.use_deterministic_algorithms``,
-    compared array by array (and the first differing op named);
+    compared array by array (and the first differing op named), under
+    torch's own TF32 settings, as the CLI runs; then a 2-step run resumed
+    for 1 step through ``io.resume=auto`` must equal an uninterrupted run
+    of this process bit for bit, and a CLI run in a fresh process sent
+    SIGTERM after its first step (it must exit 0 with a checkpoint before
+    step 3) and finished by ``--resume auto`` must equal an uninterrupted
+    CLI run; since the first training run of a process differs from the
+    later ones, a new process traces 3 steps twice and names the first
+    differing gradient (reported, not fatal);
 11. print the ``kernels`` JSON line, the card line, and the final
     ``{"ok": true, "device": ...}`` line.
 
@@ -134,7 +146,9 @@ QUALITY = ("--set", f"io.quality_every={QUALITY_EVERY}", "--set",
            "io.keep_best=true")
 # the training paths: (preset, CLI overrides, steps)
 TRAIN_RUNS = (("gumbel_64", QUALITY, 10), ("wgan_gp_32", FUSED, 30),
-              ("wgan_gp_32_structural", FUSED, 10))
+              ("wgan_gp_32_structural", FUSED, 10), ("toy_dcgan_16", (), 100),
+              ("conditional_32", (), 10))
+REPRO_CORPUS = 64            # data.corpus_size of the repro phase's runs
 # a sum over many bf16 products (dx, dgamma/dbeta): max |diff| / max |ref|
 SUM_TOL = 2.0 ** -6
 K2_TOL = 1e-5                # K2 core in f32: max rel error
@@ -147,6 +161,11 @@ PER_STEP = {
                    "K2 core fwd": 5, "K2 core bwd": 5, "K2 fused": 5},
 }
 PER_STEP["wgan_gp_32_structural"] = PER_STEP["wgan_gp_32"]
+# the BCE step: D's fake and G's update through the two stages, no GP
+PER_STEP["toy_dcgan_16"] = {"K1": 4, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
+                            "K2 core fwd": 0, "K2 core bwd": 0, "K2 fused": 0}
+# the projection critic takes the K2 core ('auto'; fused refuses it)
+PER_STEP["conditional_32"] = {**PER_STEP["wgan_gp_32"], "K2 fused": 0}
 # K2 fused against its plain version, per sample, max |diff| over the sample
 # / max |ref| over the batch.  Both round to bf16 at the same points, but
 # their f32 sums run in another order, so here and there a conv output
@@ -173,6 +192,10 @@ SPIN_CYCLES = 20_000_000     # ~10 ms of SM clock: first spin of queued_ms
 OURS = ("upsample_block_fwd_kernel", "upsample_rows_stage_kernel", "k1_bwd_",
         "dx_gather_kernel", "upsample_rows_bwd_kernel", "norm_penalty_",
         "critic_trunk_grad_kernel")
+
+
+# torch's TF32 settings at start-up (cuDNN, cuBLAS), which main() turns off
+TORCH_TF32 = []
 
 
 class SmokeFailure(RuntimeError):
@@ -1840,8 +1863,9 @@ def time_gradient_penalties(cfg, device):
 
 def train_path(name, overrides, steps, workdir):
     """Phase 7: train preset ``name`` through the CLI with counted launches,
-    check the metrics and the checkpoint, then export from that
-    checkpoint."""
+    check the metrics (the BCE step's ``d_real`` / ``d_fake``, the
+    conditional step's ``cond_match``) and the checkpoint, then export from
+    that checkpoint (a conditional one at the corpus-mean cond)."""
     import numpy as np
     import torch
     from levelgan_torch.cli import export as cli_export
@@ -1862,7 +1886,9 @@ def train_path(name, overrides, steps, workdir):
     k1l.gn_act_bwd_folded = spy
     t0 = time.perf_counter()
     try:
-        rc = cli_train.main(["--preset", name, *overrides, "--set",
+        # toy_dcgan_16 is the CLI's default preset: run it without --preset
+        rc = cli_train.main([*(("--preset", name) if name != "toy_dcgan_16"
+                               else ()), *overrides, "--set",
                              f"train.steps={steps}", "--set",
                              "io.log_every=10", "--set",
                              f"data.corpus_size={CORPUS_CUT}", "--out", out])
@@ -1893,9 +1919,13 @@ def train_path(name, overrides, steps, workdir):
     lines = [r for r in recs if "d_loss" in r]
     if [r["step"] for r in lines] != list(range(10, steps + 1, 10)):
         fail(f"metrics.jsonl steps {[r['step'] for r in lines]}")
-    keys = ["d_loss", "g_loss", "gp", "wdist", "kl", "step_ms"]
-    if preset(name).train.w_presence:
+    t = preset(name).train
+    keys = ["d_loss", "g_loss", *(("d_real", "d_fake") if t.loss == "gan"
+                                  else ("gp", "wdist")), "kl", "step_ms"]
+    if t.w_presence:
         keys.append("presence")
+    if t.w_cond_match:
+        keys.append("cond_match")
     for r in lines:
         for k in keys:
             if not math.isfinite(r.get(k, float("nan"))):
@@ -1935,23 +1965,44 @@ def train_path(name, overrides, steps, workdir):
     return counts
 
 
+def load_arrays(path: str) -> dict:
+    import numpy as np
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def differing(a: dict, b: dict) -> list:
+    import numpy as np
+    return sorted(set(a) ^ set(b)) + [
+        k for k in a if k in b and not np.array_equal(a[k], b[k])]
+
+
 def reproducibility(device, workdir, steps=3):
     """Two seeded gumbel_64 runs of ``steps`` steps through ``api.train``,
     by default and under ``torch.use_deterministic_algorithms`` (warn
     only): whether the final checkpoints are bit-identical, which arrays
     differ, and the steps' ``step_ms``.  Where the default runs differ, one
     step run twice from one state names the first module output or
-    parameter gradient that differs (``first_divergence``).  Reports; fails
-    only on an error."""
+    parameter gradient that differs (``first_divergence``); that reports
+    and fails only on an error.  Then ``resumed_runs`` holds a resumed and
+    a SIGTERM-stopped run to the first default run.  The phase runs with
+    torch's own TF32 settings, as the train CLI does (main() turns TF32 off
+    for the plain references)."""
     import numpy as np
     import torch
     from levelgan_torch import api
     from levelgan_torch.config import preset
 
     cfg = preset("gumbel_64").override(**{
-        "train.steps": steps, "data.corpus_size": CORPUS_CUT,
+        "train.steps": steps, "data.corpus_size": REPRO_CORPUS,
         "io.log_every": 1})
-    differs = {}
+    differs, whole = {}, None
+    # torch's own TF32 settings, as the CLI subprocess below runs: cuDNN's
+    # f32 convolutions (the stages' dw) take TF32 by default
+    backends = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = [b.allow_tf32 for b in backends]
+    for b, on in zip(backends, TORCH_TF32 or saved):
+        b.allow_tf32 = on
     try:
         for det in (False, True):
             torch.use_deterministic_algorithms(det, warn_only=True)
@@ -1960,9 +2011,7 @@ def reproducibility(device, workdir, steps=3):
                 out = os.path.join(workdir, f"repro_{int(det)}_{run}")
                 res = api.train(cfg.override(**{"io.out_dir": out}),
                                 device=device, echo=False)
-                with np.load(os.path.join(res["checkpoint"],
-                                          "arrays.npz")) as z:
-                    arrays.append({k: z[k] for k in z.files})
+                arrays.append(load_arrays(res["checkpoint"]))
                 with open(os.path.join(out, "metrics.jsonl")) as fh:
                     step_ms += [json.loads(ln)["step_ms"]
                                 for ln in fh.read().splitlines()][1:]
@@ -1979,16 +2028,124 @@ def reproducibility(device, workdir, steps=3):
                   + (f" (first: {diff[:4]})" if diff else "")
                   + "; step_ms after the first step "
                   + ", ".join(f"{v:.2f}" for v in step_ms))
+            # the second run: this process is warm by then (the first
+            # training run of a process differs, ``fresh_vs_warm``)
+            whole = whole or arrays[1]
+        torch.use_deterministic_algorithms(False)
+        if differs[False]:
+            print("  " + first_divergence(cfg, device))
+        resumed_runs(cfg, device, workdir, whole)
     finally:
         torch.use_deterministic_algorithms(False)
-    if differs[False]:
-        print("  " + first_divergence(cfg, device))
+        for b, on in zip(backends, saved):
+            b.allow_tf32 = on
 
 
-def first_divergence(cfg, device) -> str:
-    """One train step run twice from two states made from one seed, with
-    the same batch and randomness: the first module output or parameter
-    gradient, in the order they were computed, whose checksum differs."""
+def resumed_runs(cfg, device, workdir, whole: dict):
+    """Resume and stop against uninterrupted runs, array by array; each
+    like for like, since the first training run of a process differs from
+    the later ones (``fresh_vs_warm`` traces both in a new process and
+    names the first differing gradient; it reports only, as does the
+    uninterrupted CLI run held to ``whole``).
+
+    In this process (warm): a run of ``cfg`` stopped after 2 steps and
+    resumed through ``io.resume=auto`` must equal ``whole``, an
+    uninterrupted run made here after another.  Through the train CLI,
+    each in a fresh process: an uninterrupted run, and a run sent SIGTERM
+    after its first logged step (it must exit 0 with a checkpoint before
+    the last step) that ``--resume auto`` then finishes here; the stopped
+    run must equal the uninterrupted CLI run."""
+    import signal
+    from levelgan_torch import api
+    from levelgan_torch.cli import train as cli_train
+    from levelgan_torch.lio.checkpoint import all_checkpoints
+
+    steps = cfg.train.steps
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def check(what, arrays, ref, ref_name, fatal):
+        diff = differing(arrays, ref)
+        print(f"  {what}: {'bit-identical to' if not diff else 'differs from'}"
+              f" {ref_name} in {len(ref)} arrays"
+              + (f" ({len(diff)} differ, first: {diff[:4]})" if diff else ""))
+        if diff and fatal:
+            fail(f"{what} differs from {ref_name}: {diff[:8]}")
+
+    diag = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.fresh_vs_warm()"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    print("  " + (diag.stdout.strip().splitlines() or [diag.stderr[-2000:]])[-1])
+
+    out = os.path.join(workdir, "repro_resumed")
+    api.train(cfg.override(**{"io.out_dir": out, "train.steps": 2}),
+              device=device, echo=False)
+    res = api.train(cfg.override(**{"io.out_dir": out, "io.resume": "auto"}),
+                    device=device, echo=False)
+    check("2 steps, then 1 resumed through io.resume=auto",
+          load_arrays(res["checkpoint"]), whole,
+          f"the uninterrupted {steps}-step run", True)
+
+    cfg_path = os.path.join(workdir, "repro_config.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+
+    def cli(out, stop):
+        argv = ["--config", cfg_path, "--out", out, "--device", str(device)]
+        metrics = os.path.join(out, "metrics.jsonl")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "levelgan_torch.cli.train", *argv],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            t0 = time.perf_counter()
+            while stop and not (os.path.exists(metrics)
+                                and os.path.getsize(metrics)):
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    fail("the train CLI logged no step: "
+                         + proc.communicate(timeout=60)[0][-2000:])
+                time.sleep(0.002)
+            if stop:
+                proc.send_signal(signal.SIGTERM)
+            text = proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        ckpts = all_checkpoints(os.path.join(out, "ckpt"))
+        step = int(load_arrays(ckpts[-1])["step"]) if ckpts else None
+        return argv, proc.returncode, step, text
+
+    _, rc, step, text = cli(os.path.join(workdir, "repro_cli"), False)
+    if rc != 0 or step != steps:
+        fail(f"the train CLI: exit {rc}, checkpoint step {step}: "
+             f"{text[-2000:]}")
+    fresh = load_arrays(all_checkpoints(os.path.join(
+        workdir, "repro_cli", "ckpt"))[-1])
+    check(f"the CLI's uninterrupted {steps}-step run (a fresh process)",
+          fresh, whole, f"the uninterrupted {steps}-step run in this process",
+          False)
+
+    out = os.path.join(workdir, "repro_sigterm")
+    argv, rc, stopped, text = cli(out, True)
+    print(f"  the CLI sent SIGTERM after its first step: exit {rc}"
+          f", checkpoint at step {stopped}; its last line: "
+          f"{text.strip().splitlines()[-1] if text.strip() else ''}")
+    if rc != 0 or stopped is None or not stopped < steps:
+        fail(f"SIGTERM: exit {rc}, checkpoint step {stopped} "
+             f"(want exit 0 and a step < {steps}): {text[-2000:]}")
+    if cli_train.main([*argv, "--resume", "auto"]) != 0:
+        fail("--resume auto after SIGTERM failed")
+    check(f"stopped by SIGTERM at step {stopped}, finished with --resume auto",
+          load_arrays(all_checkpoints(os.path.join(out, "ckpt"))[-1]), fresh,
+          "the CLI's uninterrupted run", True)
+
+
+def step_trace(cfg, device, steps: int = 1) -> list:
+    """``steps`` train steps from a state made from one seed, on a seeded
+    random corpus on the device, with the batches and randomness
+    ``api.train`` draws: (name, checksum) of every leaf module output and
+    parameter gradient in the order they were computed, and of the
+    parameters and the Adam moments after each step."""
     import torch
     from levelgan_torch.api import sample_batch, step_generator
     from levelgan_torch.train.state import create_state
@@ -2000,40 +2157,73 @@ def first_divergence(cfg, device) -> str:
                            device=device,
                            generator=torch.Generator(device).manual_seed(22))
     step_fn = make_wgan_gp_step(cfg)
-    traces = []
-    for _ in range(2):
-        state = create_state(cfg, device, seed=21)
-        rec, handles = [], []
+    state = create_state(cfg, device, seed=21)
+    rec, handles, at = [], [], [0]
 
-        def note(name, t):
-            if isinstance(t, torch.Tensor) and t.is_floating_point():
-                t = t.detach().double()
-                rec.append((name, torch.stack([t.sum(), t.square().sum()])))
+    def note(name, t):
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            t = t.detach().double()
+            rec.append((f"step {at[0]} {name}",
+                        torch.stack([t.sum(), t.square().sum()])))
 
-        for prefix, model in (("G", state.generator), ("D", state.critic)):
-            for name, mod in model.named_modules():
-                if not list(mod.children()):
-                    handles.append(mod.register_forward_hook(
-                        lambda mod_, args, out, n=f"{prefix} {name or 'root'}":
-                        note(f"{n} output", out if isinstance(out, torch.Tensor)
-                             else out[0])))
-            for name, p in model.named_parameters():
-                handles.append(p.register_hook(
-                    lambda g, n=f"{prefix} {name}": note(f"{n} gradient", g)))
-        rng = step_generator(cfg, 0, device)
+    for prefix, model in (("G", state.generator), ("D", state.critic)):
+        for name, mod in model.named_modules():
+            if not list(mod.children()):
+                handles.append(mod.register_forward_hook(
+                    lambda mod_, args, out, n=f"{prefix} {name or 'root'}":
+                    note(f"{n} output", out if isinstance(out, torch.Tensor)
+                         else out[0])))
+        for name, p in model.named_parameters():
+            handles.append(p.register_hook(
+                lambda g, n=f"{prefix} {name}": note(f"{n} gradient", g)))
+    for i in range(steps):
+        at[0] = i
+        rng = step_generator(cfg, i, device)
         step_fn(state, sample_batch(corpus, cfg, rng), generator=rng)
-        torch.cuda.synchronize()
-        for h in handles:
-            h.remove()
-        traces.append(rec)
-    for i, ((n0, c0), (n1, c1)) in enumerate(zip(*traces)):
+        for prefix, model, opt in (("G", state.generator, state.opt_g),
+                                   ("D", state.critic, state.opt_d)):
+            for name, p in model.named_parameters():
+                note(f"{prefix} {name} after the update", p)
+                for k in ("exp_avg", "exp_avg_sq"):
+                    note(f"{prefix} {name} {k}", opt.state[p].get(k))
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    return rec
+
+
+def first_difference(a: list, b: list, what: str) -> str:
+    """The first record where two ``step_trace``s differ, by name."""
+    import torch
+    for i, ((n0, c0), (n1, c1)) in enumerate(zip(a, b)):
         if n0 != n1:
-            return f"the two steps ran different ops at record {i}: {n0} / {n1}"
+            return f"{what}: different ops at record {i}: {n0} / {n1}"
         if not torch.equal(c0, c1):
-            return (f"first difference at record {i} of {len(traces[0])}: "
-                    f"{n0}")
-    return (f"one step twice from one seed: all {len(traces[0])} module "
-            "outputs and parameter gradients identical")
+            return f"{what}: first difference at record {i} of {len(a)}: {n0}"
+    return (f"{what}: all {len(a)} module outputs, gradients, parameters "
+            "and moments identical")
+
+
+def first_divergence(cfg, device) -> str:
+    """One train step run twice from two states made from one seed, with
+    the same batch and randomness: the first module output or parameter
+    gradient, in the order they were computed, whose checksum differs."""
+    return first_difference(step_trace(cfg, device), step_trace(cfg, device),
+                            "one step twice from one seed")
+
+
+def fresh_vs_warm(steps: int = 3) -> None:
+    """Run in a fresh process (the repro phase starts it): ``steps`` traced
+    steps of the repro configuration, then the same again in this process,
+    now warm; prints where the first differs from the second."""
+    import torch
+    from levelgan_torch.config import preset
+    device = torch.device("cuda", 0)
+    cfg = preset("gumbel_64").override(**{"data.corpus_size": REPRO_CORPUS})
+    fresh = step_trace(cfg, device, steps)
+    print(first_difference(fresh, step_trace(cfg, device, steps),
+                           f"{steps} steps in a fresh process against the "
+                           "same in that process warm"))
 
 
 def warm_steps(cfg, device):
@@ -2335,6 +2525,9 @@ def main(argv=()) -> int:
         return 2
 
     # the plain versions are references: keep cuDNN/cuBLAS out of TF32
+    # (the repro phase runs with torch's own settings, as the CLI does)
+    TORCH_TF32.extend((torch.backends.cudnn.allow_tf32,
+                       torch.backends.cuda.matmul.allow_tf32))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -2391,7 +2584,8 @@ def main(argv=()) -> int:
             print("profile: one export batch")
             profile_export(cfg, device)
         if phase("train_parity"):
-            for c in (cfg, cfg32):
+            # toy_dcgan_16: K1 fwd and bwd at its two stages (the BCE step)
+            for c in (cfg, cfg32, preset("toy_dcgan_16")):
                 print(f"training kernel parity and timing ({c.preset}, "
                       f"B={B_TRAIN}):")
                 train_kernel_parity(c, device, train_records)
@@ -2407,8 +2601,9 @@ def main(argv=()) -> int:
             k2_core_rows(device, train_records)
         if phase("train"):
             for name, overrides, steps in TRAIN_RUNS:
-                print(f"training path: levelgan_torch.cli.train --preset "
-                      f"{name} {' '.join(overrides)}, {steps} steps "
+                print(f"training path: levelgan_torch.cli.train "
+                      f"{'--preset ' + name if name != 'toy_dcgan_16' else ''}"
+                      f" {' '.join(overrides)}, {steps} steps "
                       f"(data.corpus_size cut to {CORPUS_CUT}: the preset's "
                       "4096 levels take minutes of host NumPy carving)")
                 train_counts[name] = train_path(name, overrides, steps,
@@ -2425,7 +2620,8 @@ def main(argv=()) -> int:
                 state, step_fn, corpus = warm_steps(c, device)
                 profile_train(state, step_fn, corpus, c)
         if phase("repro"):
-            print("reproducibility: gumbel_64 trained twice from one seed")
+            print("reproducibility: gumbel_64 trained twice from one seed, "
+                  "then resumed and stopped by SIGTERM")
             reproducibility(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

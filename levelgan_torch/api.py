@@ -1,20 +1,38 @@
 """Public API: ``train(cfg)``, the training entry point.
 
-Port of ``levelgan/api.py:train`` for tile-family WGAN-GP models
-(``gumbel_64``, ``wgan_gp_32``).  The corpus is built on the host once and
-staged on the device; each step's batch indices [n_critic, B] are drawn on
-the device from a ``torch.Generator`` seeded by (``train.seed``, step), and
-the same generator then draws the step's noise (``draw_step_noise``), so a
-step's randomness depends on nothing but the seed and the step.  Metrics
-go to ``metrics.jsonl`` every ``io.log_every`` steps (with the window's
-tile-histogram ``kl`` against the corpus and ``step_ms``), checkpoints
-every ``io.ckpt_every`` steps and at the end, with the whole state (the
-optimizers in optax's layout), so that the JAX package can load them.
-Every ``io.quality_every`` steps a quality probe samples ``io.quality_n``
-levels from the EMA generator and logs ``solvable_frac``,
+Port of ``levelgan/api.py:train`` for the tile family's GAN and WGAN-GP
+presets (``toy_dcgan_16``, ``wgan_gp_32``, ``wgan_gp_32_structural``,
+``gumbel_64``, ``conditional_32``).  ``train.loss='gan'`` runs the BCE
+step (``train/gan.py``) on batches [B, H, W], ``'wgan_gp'`` the WGAN-GP
+step on [n_critic, B, H, W].  The corpus is built on the host once and
+staged on the device; each step's batch indices are drawn on the device
+from a ``torch.Generator`` seeded by (``train.seed``, step), and the same
+generator then draws the step's noise, so a step's randomness depends on
+nothing but the seed and the step, and a resumed run consumes exactly the
+batches and draws an uninterrupted one would.  Metrics go to
+``metrics.jsonl`` (appended to) every ``io.log_every`` steps (with the
+window's tile-histogram ``kl`` against the corpus and ``step_ms``),
+checkpoints every ``io.ckpt_every`` steps and at the end, with the whole
+state (the optimizers in optax's layout), so that the JAX package can load
+them.  Every ``io.quality_every`` steps a quality probe samples
+``io.quality_n`` levels from the EMA generator and logs ``solvable_frac``,
 ``has_start_frac`` and ``has_goal_frac`` (the flood fill on the device;
 three floats cross to the host); with ``io.keep_best`` the state of the
-best ``solvable_frac`` so far is kept in ``ckpt_best/``.
+best ``solvable_frac`` so far is kept in ``ckpt_best/`` (the best starts
+again from -1 after a resume, as in the JAX package).
+
+``io.resume``: ``'auto'`` restores the newest readable checkpoint of
+``<out_dir>/ckpt`` (walking back past unreadable ones, raising when
+checkpoints exist but none loads), a path restores that checkpoint.  The
+loop starts at the restored step; cadences are boundary crossings, so a
+resumed run logs and checkpoints at the steps an uninterrupted one does.
+SIGTERM or SIGINT (handlers on the main thread only) requests a stop: the
+step in flight finishes, an atomic checkpoint is written, the old handlers
+come back and ``train`` returns with ``preempted``; a second signal is
+re-raised.  ``io.debug_nans`` runs each step under
+``torch.autograd.set_detect_anomaly`` (a backward that returns NaN raises)
+and stops with ``FloatingPointError`` naming the first non-finite metric
+of a step.
 
 The port runs eagerly on one device, so ``train.steps_per_dispatch`` (how
 many jitted steps the JAX package scans per dispatch) has no meaning here
@@ -22,14 +40,18 @@ and is ignored, as are ``io.compile_cache`` (XLA's cache) and
 ``data.feed`` (the corpus is always on the device).
 
 Not in this slice, each raising ``NotImplementedError`` rather than being
-skipped: ``io.resume`` (reading the state back), ``io.render_every``
-(PNG renders), ``io.profile`` and ``io.tensorboard``, the BCE GAN and
-curriculum losses, conditional models and the track family.
+skipped: ``io.render_every`` (PNG renders), ``io.profile``,
+``io.tensorboard``, data parallelism (``dist.dp > 1``,
+``dist.coordinator_address``, ``dist.num_processes > 1``), the curriculum
+loss and the track family.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -39,38 +61,40 @@ from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
 from levelgan_torch.data.dataset import LevelDataset
 from levelgan_torch.device import resolve_device
-from levelgan_torch.lio.checkpoint import save_checkpoint
+from levelgan_torch.lio.checkpoint import (all_checkpoints, load_checkpoint,
+                                           save_checkpoint)
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
 from levelgan_torch.lio.quality import playability
 from levelgan_torch.models import sample_head
+from levelgan_torch.train.gan import corpus_cond_scale, make_gan_step
 from levelgan_torch.train.state import create_state
 from levelgan_torch.train.wgan_gp import make_wgan_gp_step
 
 _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 _PROBE_TAG = 0x9B0BE         # the quality probe's stream
+_STEPS = {"gan": make_gan_step, "wgan_gp": make_wgan_gp_step}
 
 
 def _not_ported(cfg: Config) -> None:
-    io, t, m = cfg.io, cfg.train, cfg.model
+    io, t, m, d = cfg.io, cfg.train, cfg.model, cfg.dist
     later = [
-        (io.resume, "io.resume needs the optimizer states read back from "
-                    "the full-state checkpoint"),
-        (io.render_every, "io.render_every (PNG renders during training) "
-                          "comes with the full-state checkpoint and resume"),
-        (io.profile, "io.profile (a profiler trace of the run) comes with "
-                     "the full-state checkpoint and resume"),
-        (io.tensorboard, "io.tensorboard comes with the full-state "
-                         "checkpoint and resume"),
+        (io.render_every, "io.render_every (PNG renders during training)"),
+        (io.profile, "io.profile (a profiler trace of the run)"),
+        (io.tensorboard, "io.tensorboard (TensorBoard scalars)"),
+        (d.dp > 1, f"dist.dp={d.dp}: data parallelism (dist/mesh.py as "
+                   "torch DDP); the port trains on one device"),
+        (d.coordinator_address, "dist.coordinator_address: multi-host "
+                                "training (dist/mesh.py)"),
+        (d.num_processes > 1, f"dist.num_processes={d.num_processes}: "
+                              "multi-process training (dist/mesh.py)"),
         (m.family != "tile", "the track family (track/)"),
-        (t.loss == "gan", "the BCE GAN step (train/gan.py, toy_dcgan_16) is "
-                          "the next training item"),
         (t.loss == "curriculum", "the curriculum step (train/curriculum.py "
                                  "with env/)"),
     ]
     for on, why in later:
         if on:
             raise NotImplementedError(f"not ported yet: {why}")
-    if t.loss != "wgan_gp":
+    if t.loss not in _STEPS:
         raise ValueError(f"unknown loss '{t.loss}'")
 
 
@@ -110,10 +134,13 @@ def make_quality_probe(cfg: Config, n: int):
 
 def sample_batch(corpus: torch.Tensor, cfg: Config,
                  generator: torch.Generator) -> torch.Tensor:
-    """Device-side batch ids [n_critic, B, H, W] from the staged corpus."""
+    """Device-side batch ids from the staged corpus: [n_critic, B, H, W]
+    for WGAN-GP, [B, H, W] for the BCE GAN."""
     t = cfg.train
-    idx = torch.randint(0, corpus.shape[0], (t.n_critic, t.batch_size),
-                        device=corpus.device, generator=generator)
+    shape = ((t.n_critic, t.batch_size) if t.loss == "wgan_gp"
+             else (t.batch_size,))
+    idx = torch.randint(0, corpus.shape[0], shape, device=corpus.device,
+                        generator=generator)
     return corpus[idx]
 
 
@@ -125,17 +152,85 @@ def save_state(ckpt_dir: str, state, cfg: Config, step: int,
                            opt_g=state.opt_g, opt_d=state.opt_d, keep=keep)
 
 
+def resume(cfg: Config, state, ckpt_dir: str, echo: bool = True):
+    """``state`` restored per ``io.resume`` (unchanged when it is '')."""
+    want = cfg.io.resume
+    impl = cfg.train.prng_impl
+    if want == "auto":
+        candidates = all_checkpoints(ckpt_dir)
+        for path in reversed(candidates):
+            try:
+                state = load_checkpoint(path, state, prng_impl=impl)[0]
+            except Exception as e:   # corrupt or partial: try the older one
+                print(f"[levelgan_torch] skipping unreadable checkpoint "
+                      f"{path}: {e}")
+                continue
+            if echo:
+                print(f"[levelgan_torch] resumed from {path}")
+            return state
+        if candidates:
+            # an automated preemption loop must not restart from step 0
+            raise RuntimeError(
+                f"resume='auto': {len(candidates)} checkpoint(s) in "
+                f"{ckpt_dir} but none loadable; refusing to silently "
+                "restart from scratch (pass resume='' to force a fresh run)")
+    elif want:
+        if not os.path.isdir(want):
+            raise FileNotFoundError(f"resume checkpoint not found: {want}")
+        state = load_checkpoint(want, state, prng_impl=impl)[0]
+        if echo:
+            print(f"[levelgan_torch] resumed from {want}")
+    return state
+
+
+class _StopRequest:
+    """SIGTERM / SIGINT request a stop (``self.requested``); a second signal
+    restores the old handlers and re-raises.  Installed only on the main
+    thread; ``restore`` puts the old handlers back."""
+
+    def __init__(self):
+        self.requested = False
+        self._old = {}
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._old[sig] = signal.signal(sig, self._handle)
+
+    def _handle(self, signum, frame):
+        if self.requested:
+            self.restore()
+            signal.raise_signal(signum)
+            return
+        self.requested = True
+
+    def restore(self):
+        while self._old:
+            sig, handler = self._old.popitem()
+            signal.signal(sig, handler)
+
+
+def _check_finite(step: int, metrics: dict) -> None:
+    """``io.debug_nans``: stop at the first non-finite metric of a step."""
+    for name, v in metrics.items():
+        if name != "gen_hist" and not math.isfinite(float(v)):
+            raise FloatingPointError(
+                f"io.debug_nans: metric '{name}' is {float(v)} at step "
+                f"{step}")
+
+
 def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
-    """Run training per ``cfg``; returns ``{checkpoint, kl, metrics}``
-    (and ``best``, the ``ckpt_best/`` checkpoint, under ``io.keep_best``)."""
+    """Run training per ``cfg``; returns ``{checkpoint, preempted, kl,
+    metrics}`` (and ``best``, the ``ckpt_best/`` checkpoint, under
+    ``io.keep_best``)."""
     _not_ported(cfg)
     dev = resolve_device(device)
-    step_fn = make_wgan_gp_step(cfg)
     ds = LevelDataset.from_config(cfg.data, cfg.model, seed=cfg.train.seed)
+    cond_scale = (corpus_cond_scale(cfg, ds.levels) if cfg.train.w_cond_match
+                  else None)
+    step_fn = _STEPS[cfg.train.loss](cfg, cond_scale=cond_scale)
     ref_hist = ds.tile_histogram(cfg.model.n_tiles)
     corpus = torch.from_numpy(ds.levels).to(dev)
-    state = create_state(cfg, dev)
     ckpt_dir = os.path.join(cfg.io.out_dir, "ckpt")
+    state = resume(cfg, create_state(cfg, dev), ckpt_dir, echo)
     io, steps = cfg.io, cfg.train.steps
 
     def crossed(every: int, prev: int, cur: int) -> bool:
@@ -145,8 +240,9 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     if echo:
         n_g = sum(p.numel() for p in state.generator.parameters())
         n_d = sum(p.numel() for p in state.critic.parameters())
-        print(f"[levelgan_torch] preset={cfg.preset} loss=wgan_gp "
-              f"device={dev} G params={n_g:,} D params={n_d:,}")
+        print(f"[levelgan_torch] preset={cfg.preset} loss={cfg.train.loss} "
+              f"device={dev} G params={n_g:,} D params={n_d:,} "
+              f"start step={state.step}", flush=True)
     quality_probe = (make_quality_probe(cfg, io.quality_n)
                      if io.quality_every else None)
     # conditional probes ask for 0.25 in every feature, as the JAX package's
@@ -156,12 +252,19 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     best_solvable, best = -1.0, None
     gen_hist = torch.zeros(cfg.model.n_tiles, device=dev)
     kl, last_metrics = float("nan"), {}
-    t_last, last_i = time.monotonic(), 0
+    start = state.step
+    t_last, last_i = time.monotonic(), start
+    stop = _StopRequest()
     try:
-        for i in range(steps):
+        for i in range(start, steps):
+            if stop.requested:
+                break
             rng = step_generator(cfg, i, dev)
-            state, metrics = step_fn(state, sample_batch(corpus, cfg, rng),
-                                     generator=rng)
+            batch = sample_batch(corpus, cfg, rng)
+            with torch.autograd.set_detect_anomaly(io.debug_nans):
+                state, metrics = step_fn(state, batch, generator=rng)
+            if io.debug_nans:
+                _check_finite(i + 1, metrics)
             gen_hist += metrics.pop("gen_hist")
             if crossed(io.log_every, i, i + 1) or i + 1 == steps:
                 kl = kl_divergence(gen_hist, ref_hist)     # syncs the device
@@ -186,9 +289,18 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
             if crossed(io.ckpt_every, i, i + 1) and i + 1 < steps:
                 save_state(ckpt_dir, state, cfg, i + 1, io.keep_ckpts)
     finally:
+        stop.restore()
         logger.close()
+    preempted = stop.requested and state.step < steps
     final = save_state(ckpt_dir, state, cfg, state.step, io.keep_ckpts)
-    out = {"checkpoint": final, "kl": kl, "metrics": last_metrics}
+    if preempted and echo:
+        print(f"[levelgan_torch] preempted at step {state.step}; checkpoint "
+              f"saved to {final}; resume with io.resume=auto")
+    # a stop mid-window: the counts since the last log are the newest
+    if float(gen_hist.sum()) > 0:
+        kl = kl_divergence(gen_hist, ref_hist)
+    out = {"checkpoint": final, "preempted": preempted, "kl": kl,
+           "metrics": last_metrics}
     if best is not None:
         out["best"] = best
     return out

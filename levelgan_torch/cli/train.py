@@ -1,9 +1,12 @@
 """Train CLI: ``python -m levelgan_torch.cli.train``.
 
 Port of ``levelgan/cli/train.py``: a preset or a config file, dotted
-``--set key=value`` overrides, ``--out`` for ``io.out_dir``; runs
+``--set key=value`` overrides, ``--out`` for ``io.out_dir``, ``--resume``
+for ``io.resume`` ('auto' or a checkpoint path); runs
 ``levelgan_torch.api.train`` on the GPU (``--device cpu`` for the plain
-CPU path).  ``--print-config`` prints the resolved config and exits.
+CPU path).  SIGTERM or SIGINT stops the run after the step in flight with
+a checkpoint, and the CLI exits 0 (``--resume auto`` continues it).
+``--print-config`` prints the resolved config and exits.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="dotted config override, e.g. --set train.steps=500")
     ap.add_argument("--out", default=None, help="shortcut for io.out_dir")
+    ap.add_argument("--resume", default=None,
+                    help="'auto' (newest readable checkpoint in "
+                         "<out>/ckpt) or a checkpoint path; shortcut for "
+                         "io.resume")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch path)")
@@ -47,14 +54,16 @@ def main(argv=None):
     overrides = parse_overrides(args.set)
     if args.out is not None:
         overrides["io.out_dir"] = args.out
+    if args.resume is not None:
+        overrides["io.resume"] = args.resume
     cfg = load_config(args.config, args.preset or
                       (None if args.config else "toy_dcgan_16"), overrides)
     if args.print_config:
         print(cfg.to_json())
         return 0
     result = train(cfg, device=args.device)
-    print(f"[levelgan_torch] done: checkpoint={result['checkpoint']} "
-          f"kl={result['kl']:.5f}")
+    print(f"[levelgan_torch] {'preempted' if result['preempted'] else 'done'}"
+          f": checkpoint={result['checkpoint']} kl={result['kl']:.5f}")
     return 0
 
 

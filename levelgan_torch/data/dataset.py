@@ -121,7 +121,8 @@ class LevelDataset:
             raise NotImplementedError(
                 "data.corpus='synthetic_native' needs the C carver "
                 "(levelgan/native/corpusgen.c), not copied into the port yet; "
-                "use 'synthetic' (the same corpus from NumPy)")
+                "'synthetic' is the NumPy carver, a distinct random stream "
+                "and so a different corpus from the same seed")
         if data_cfg.corpus == "synthetic":
             levels = synthetic_corpus(
                 data_cfg.corpus_size, model_cfg.level_size,

@@ -7,6 +7,11 @@ distance], each in [0, 1].  ``level_features`` reads hard levels;
 straight-through one-hot sample (exact soft fractions; the distance with
 straight-through positions: the hard argmax cell forward, the
 probability-weighted mean position backward), for conditional training.
+Where START and GOAL sit in one row or column the distance term is |0|:
+the JAX package's forward there is (hard + soft) - soft, a few ulps either
+side of 0 by its rounding, so the sign of that term's gradient follows
+the rounding; the port's forward is exactly the hard cell and takes
+JAX's derivative of |x| at 0 (+1).
 """
 
 from __future__ import annotations
@@ -62,13 +67,20 @@ def soft_level_features(sample: torch.Tensor) -> torch.Tensor:
         idx = torch.argmax(p.reshape(b, -1), dim=-1)
         hard_r = (idx // w).float()
         hard_c = (idx % w).float()
-        return (hard_r + soft_r - soft_r.detach(),
-                hard_c + soft_c - soft_c.detach())
+        # hard + (soft - soft): exactly the hard cell forward, so START
+        # and GOAL in one row or column give a difference of exactly 0
+        return (hard_r + (soft_r - soft_r.detach()),
+                hard_c + (soft_c - soft_c.detach()))
 
     sr, sc = st_pos(START)
     gr, gc = st_pos(GOAL)
-    dist = ((sr - gr).abs() + (sc - gc).abs()) / (h + w)
+    dist = (_abs(sr - gr) + _abs(sc - gc)) / (h + w)
     return torch.stack([frac(WALL), frac(HAZARD), frac(COIN), dist], dim=-1)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's derivative at 0 (+1; ``torch.abs`` gives 0 there)."""
+    return torch.where(x >= 0, x, -x)
 
 
 @torch.no_grad()

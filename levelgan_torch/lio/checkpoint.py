@@ -18,7 +18,12 @@ schedule, ``opt_g/1/count`` (``scale_by_schedule``); both counts are
 ``train.prng_impl`` implies (threefry2x32: 2 words, rbg: 4), drawn from the
 run's seed and step: the JAX key stream cannot be reproduced in torch
 anyway.  ``g_baseline`` (the curriculum's REINFORCE baseline) is 0.
-Reading the optimizers back into the port (resume) is later work.
+
+``load_checkpoint`` reads the whole state back into a ``GANState`` (the
+counterpart of the JAX package's ``load_checkpoint`` / ``flat_to_state``):
+from checkpoints that either package wrote, since both share the layout.
+A key the run's models lack, or a leaf of another shape (a checkpoint of
+another model shape), is refused before anything is copied.
 """
 
 from __future__ import annotations
@@ -147,6 +152,73 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 def load_manifest(path: str) -> dict:
     with open(os.path.join(path, "manifest.json")) as f:
         return json.load(f)
+
+
+def _module_leaves(module: torch.nn.Module, flat: dict, prefix: str):
+    """(parameter, array) pairs of ``module`` from ``flat`` under ``prefix``,
+    checked for presence and shape."""
+    pairs = []
+    for name, p in module.state_dict(keep_vars=True).items():
+        key = f"{prefix}/{name.replace('.', '/')}"
+        pairs.append((p, _leaf(flat, key, tuple(p.shape))))
+    return pairs
+
+
+def _leaf(flat: dict, key: str, shape: tuple) -> np.ndarray:
+    if key not in flat:
+        raise KeyError(f"checkpoint missing key '{key}'")
+    arr = flat[key]
+    if arr.shape != shape:
+        raise ValueError(f"checkpoint key '{key}' shape {arr.shape} != "
+                         f"expected {shape}")
+    return arr
+
+
+def load_checkpoint(path: str, state, *,
+                    prng_impl: str = "threefry2x32") -> tuple[object, Config]:
+    """Restore ``state`` (a ``GANState``) in place from a full-state
+    checkpoint directory; returns (state, the checkpoint's Config).
+
+    Reads the three models (``g_ema`` falls back to the generator in
+    checkpoints without an EMA), both optimizers with their counts and
+    moments (``ScheduledAdam.restore``) and ``step``; ``rng`` must have
+    the shape ``prng_impl`` (the run's ``train.prng_impl``) implies.
+    Every leaf is checked before any is copied, so a refused checkpoint
+    leaves ``state`` as it was."""
+    manifest = load_manifest(path)
+    if manifest["format_version"] > FORMAT_VERSION:
+        raise ValueError(f"checkpoint format {manifest['format_version']} "
+                         f"newer than supported {FORMAT_VERSION}")
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    words = (_KEY_WORDS[prng_impl],)
+    if flat["rng"].shape != words:
+        raise ValueError(
+            f"checkpoint rng key-data shape {flat['rng'].shape} != {words} "
+            f"expected by train.prng_impl={prng_impl}; the checkpoint was "
+            "written under a different prng_impl")
+    ema = "g_ema" if any(k.startswith("g_ema/") for k in flat) else "generator"
+    leaves = (_module_leaves(state.generator, flat, "generator")
+              + _module_leaves(state.critic, flat, "discriminator")
+              + _module_leaves(state.g_ema, flat, ema))
+    adams = []
+    for opt, model, prefix in ((state.opt_g, state.generator, "opt_g"),
+                               (state.opt_d, state.critic, "opt_d")):
+        count = int(_leaf(flat, f"{prefix}/0/count", ()))
+        moments = {}
+        for name, p in model.named_parameters():
+            key = name.replace(".", "/")
+            moments[p] = tuple(torch.from_numpy(np.array(_leaf(
+                flat, f"{prefix}/0/{slot}/{key}", tuple(p.shape))))
+                for slot in ("mu", "nu"))
+        adams.append((opt, count, moments))
+    with torch.no_grad():
+        for p, arr in leaves:
+            p.copy_(torch.from_numpy(np.array(arr, np.float32)))
+    for opt, count, moments in adams:
+        opt.restore(count, moments)
+    state.step = int(flat["step"])
+    return state, Config.from_dict(manifest["config"])
 
 
 def load_generator_params(path: str) -> tuple[dict[str, torch.Tensor], Config]:

@@ -6,6 +6,8 @@ Port of ``levelgan/train/state.py``.  ``ScheduledAdam`` is
 is, and its learning rate follows the config's schedule counted in
 optimizer updates (with cosine decay the critic's horizon is scaled by
 ``n_critic``, since it updates that many times per train step).
+``ScheduledAdam.restore`` continues it from a checkpoint's count and
+moments (``lio.checkpoint.load_checkpoint``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,23 @@ class ScheduledAdam(torch.optim.Adam):
             group["lr"] = lr
         self.count += 1
         return super().step(closure)
+
+    @torch.no_grad()
+    def restore(self, count: int, moments: dict) -> None:
+        """Continue after ``count`` updates with ``moments`` {param: (mu,
+        nu)} (optax's ``mu`` / ``nu``): the schedule and the bias
+        correction go on where they stopped.  At ``count`` 0 the state
+        stays empty, as before a first update."""
+        self.count = int(count)
+        self.state.clear()
+        if not self.count:
+            return
+        for p, (mu, nu) in moments.items():
+            # "step" as Adam keeps it: a default-dtype scalar on the host
+            self.state[p] = {
+                "step": torch.tensor(float(self.count)),
+                "exp_avg": mu.to(p.device, p.dtype).contiguous(),
+                "exp_avg_sq": nu.to(p.device, p.dtype).contiguous()}
 
 
 def lr_schedule(cfg: Config, base: float, updates_per_step: int = 1):

@@ -16,8 +16,12 @@ In the critic loop the fake batch is made under ``torch.no_grad()`` (the
 forward kernels without residuals there; in the generator update they run
 as autograd Functions whose backward is the ported backward kernels.
 
-Not ported yet (each raises ``NotImplementedError``): conditional models
-and the cond-match loss (they need ``data/features.py``).
+Conditional models: the critic iterations score (and penalise) each real
+batch under ``level_features`` of its augmented ids (``prepare_real``),
+and G is conditioned on the features of the last real batch, un-augmented
+(the features are D4-invariant), with the cond-match loss
+(``train.w_cond_match``, ``gan.cond_match_loss``) on its expected
+features.
 """
 
 from __future__ import annotations
@@ -26,32 +30,17 @@ import torch
 
 from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
+from levelgan_torch.data.features import level_features
 from levelgan_torch.lio.metrics import tile_histogram
 from levelgan_torch.models import sample_head
 from levelgan_torch.ops.grad_penalty import make_gradient_penalty
-from levelgan_torch.ops.gumbel import gumbel_noise
 from levelgan_torch.ops.presence import (excess_weight_schedule,
                                          mbstd_scale_schedule,
                                          presence_penalty)
-from levelgan_torch.train.gan import current_tau, prepare_real
+from levelgan_torch.train.gan import (apply_grads, check_step_config,
+                                     cond_match_loss, corpus_cond_scale,
+                                     current_tau, head_noise, prepare_real)
 from levelgan_torch.train.state import GANState, update_ema
-
-
-def head_noise(cfg: Config, batch: int, device,
-               generator: torch.Generator | None):
-    """The Gumbel draws ``sample_head`` takes for this config (None for the
-    noiseless heads; the (base, start, goal) triple for the spatial
-    structural head)."""
-    m = cfg.model
-    if m.head != "gumbel":
-        return None
-    shape = (batch, m.level_size, m.level_size, m.n_tiles)
-    base = gumbel_noise(shape, device=device, generator=generator)
-    if m.structural_head != "spatial":
-        return base
-    cells = (batch, m.level_size * m.level_size)
-    return (base, gumbel_noise(cells, device=device, generator=generator),
-            gumbel_noise(cells, device=device, generator=generator))
 
 
 def draw_step_noise(cfg: Config, n_critic: int, batch: int, device,
@@ -74,12 +63,6 @@ def draw_step_noise(cfg: Config, n_critic: int, batch: int, device,
     return {"critic": its,
             "g": {"z": z(), "noise": head_noise(cfg, batch, device,
                                                 generator)}}
-
-
-def _apply_grads(params, grads, opt) -> None:
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
 
 
 def make_critic_scan(cfg: Config, gp_impl):
@@ -117,7 +100,7 @@ def make_critic_scan(cfg: Config, gp_impl):
             wdist = d_real.mean() - d_fake.mean()
             loss = -wdist + t.gp_lambda * gp
             if live:   # freeze_critic_until: params and Adam state held
-                _apply_grads(params, torch.autograd.grad(loss, params),
+                apply_grads(params, torch.autograd.grad(loss, params),
                              state.opt_d)
             out = {"d_loss": loss.detach(), "gp": gp.detach(),
                    "wdist": wdist.detach()}
@@ -126,22 +109,16 @@ def make_critic_scan(cfg: Config, gp_impl):
     return run
 
 
-def make_wgan_gp_step(cfg: Config):
+def make_wgan_gp_step(cfg: Config, cond_scale: torch.Tensor | None = None):
     """The WGAN-GP step: ``step_fn(state, batch_ids [n_critic, B, H, W],
     noise=None, generator=None) -> (state, metrics)``; ``noise`` is
-    ``draw_step_noise``'s structure, else drawn from ``generator``."""
+    ``draw_step_noise``'s structure, else drawn from ``generator``.
+    ``cond_scale`` is ``gan.corpus_cond_scale``'s (computed here when the
+    cond-match loss needs it and none is given)."""
     m, t = cfg.model, cfg.train
-    if t.w_closure:
-        raise ValueError("train.w_closure is track-family only "
-                         "(heading-closure prior); tile levels have no "
-                         "loop-closure invariant")
-    if t.w_cond_match and not m.cond_dim:
-        raise ValueError("train.w_cond_match requires a conditional model "
-                         "(model.cond_dim > 0)")
-    if m.cond_dim or t.w_cond_match:
-        raise NotImplementedError(
-            "conditional WGAN-GP training (model.cond_dim, "
-            "train.w_cond_match) needs data/features.py, not ported yet")
+    check_step_config(cfg)
+    if t.w_cond_match and cond_scale is None:
+        cond_scale = corpus_cond_scale(cfg)
     critic_scan = make_critic_scan(cfg, make_gradient_penalty(m))
 
     def step_fn(state: GANState, batch_ids: torch.Tensor, noise=None,
@@ -157,18 +134,23 @@ def make_wgan_gp_step(cfg: Config):
         # ---- generator update, against the updated critic --------------
         gen, critic = state.generator, state.critic
         ng = noise["g"]
-        fake = sample_head(gen(ng["z"]), m.head, current_tau(cfg, state.step),
+        cond_g = level_features(batch_ids[-1]) if m.cond_dim else None
+        logits = gen(ng["z"], cond_g)
+        fake = sample_head(logits, m.head, current_tau(cfg, state.step),
                            m.structural_head, noise=ng["noise"])
-        g_loss = -critic(fake, None, mbstd_scale_schedule(t, state.step)
+        g_loss = -critic(fake, cond_g, mbstd_scale_schedule(t, state.step)
                          ).mean()
-        pres = None
+        pres = cmatch = None
         if t.w_presence:
             pres = presence_penalty(
                 fake, w_spread=t.presence_spread,
                 w_excess=excess_weight_schedule(t, state.step))
             g_loss = g_loss + t.w_presence * pres
+        if t.w_cond_match:
+            cmatch = cond_match_loss(logits, cond_g, cond_scale)
+            g_loss = g_loss + t.w_cond_match * cmatch
         params = list(gen.parameters())
-        _apply_grads(params, torch.autograd.grad(g_loss, params),
+        apply_grads(params, torch.autograd.grad(g_loss, params),
                      state.opt_g)
         update_ema(cfg, state.g_ema, gen, state.step)
         state.step += 1
@@ -177,6 +159,8 @@ def make_wgan_gp_step(cfg: Config):
                                               m.n_tiles)}
         if pres is not None:
             metrics["presence"] = pres.detach()
+        if cmatch is not None:
+            metrics["cond_match"] = cmatch.detach()
         return state, metrics
 
     return step_fn

@@ -68,3 +68,23 @@ def test_soft_level_features_values_and_gradients_match_jax():
     np.testing.assert_allclose(
         tfeat.soft_level_features(onehot.float()).numpy(),
         tfeat.level_features(torch.from_numpy(ids)).numpy(), atol=1e-6)
+
+
+def test_soft_distance_at_a_start_goal_tie_takes_jax_abs_derivative():
+    """START and GOAL argmax cells in one row: the port's forward there is
+    exactly the hard distance and its gradient is the JAX oracle's with
+    exact straight-through positions (|x|' = +1 at 0), where torch's abs
+    would drop the row term."""
+    from test_torch_gan_step import _exact_st_soft_features
+
+    x = np.random.default_rng(7).standard_normal((2, 8, 8, 8)).astype(
+        np.float32)
+    x[:, 3, 1, 2] = x[:, 3, 6, 3] = 9.0      # START (2), GOAL (3) in row 3
+    xt = torch.from_numpy(x).requires_grad_(True)
+    dist = tfeat.soft_level_features(torch.softmax(xt, dim=-1))[:, 3]
+    assert dist.detach().tolist() == [5 / 16, 5 / 16]   # |6 - 1| / (8 + 8)
+    dist.sum().backward()
+    want = jax.grad(lambda v: jnp.sum(_exact_st_soft_features(
+        jax.nn.softmax(v, axis=-1))[:, 3]))(jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-8)

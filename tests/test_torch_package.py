@@ -24,7 +24,8 @@ _MODULES = [
     "levelgan_torch.env.sim", "levelgan_torch.env.solver",
     "levelgan_torch.ops.repair", "levelgan_torch.data.features",
     "levelgan_torch.lio.calibration", "levelgan_torch.lio.stats",
-    "levelgan_torch.lio.quality", "chip_smoke",
+    "levelgan_torch.lio.quality", "levelgan_torch.cli.validate",
+    "chip_smoke", "whole_runs",
 ]
 
 

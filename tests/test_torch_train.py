@@ -35,6 +35,7 @@ from levelgan_torch.config import Config
 from levelgan_torch.models import Critic, Generator
 from levelgan_torch.train import state as tstate
 from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+from test_torch_gan_step import exact_st_features  # noqa: F401 (fixture)
 
 LR = 1e-4
 B, N_CRITIC, LEVEL = 4, 2, 16
@@ -148,14 +149,21 @@ def check_one_step_matches_jax(jcfg, extra_metrics=()):
     return met
 
 
-@pytest.mark.parametrize("kw", [{}, {"pallas_gp": "xla",
-                                    "critic_mbstd": "input"}],
-                         ids=["core_gp", "plain_gp_mbstd_input"])
-def test_one_wgan_gp_step_matches_jax(kw):
-    """The port's picker runs ``kw['pallas_gp']``; the JAX step its oracle."""
+@pytest.mark.parametrize("kw", [
+    {}, {"model.pallas_gp": "xla", "model.critic_mbstd": "input"},
+    {"model.cond_dim": 4, "model.cond_mode": "projection",
+     "train.w_cond_match": 1.0, "train.cond_match_dim_weights": "1,8,8,4",
+     "data.corpus_size": 64}],
+    ids=["core_gp", "plain_gp_mbstd_input", "conditional_cond_match"])
+def test_one_wgan_gp_step_matches_jax(kw, exact_st_features):
+    """The port's picker runs ``model.pallas_gp``; the JAX step its oracle.
+    The conditional case scores and penalises under each real batch's
+    features and adds the cond-match loss (the JAX side's straight-through
+    positions as ``exact_st_features`` computes them)."""
     jcfg, _ = _cfgs()
     check_one_step_matches_jax(
-        jcfg.override(**{f"model.{k}": v for k, v in kw.items()}))
+        jcfg.override(**kw),
+        extra_metrics=("cond_match",) if "model.cond_dim" in kw else ())
 
 
 def test_freeze_critic_until_holds_critic_and_its_adam():
@@ -255,7 +263,7 @@ def test_create_state_inits_and_copies_ema():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"model.cond_dim": 4}, "features"),
+    ({"model.family": "track"}, "track"),
 ])
 def test_step_raises_for_later_slices(override, match):
     _, cfg = _cfgs()
@@ -264,10 +272,12 @@ def test_step_raises_for_later_slices(override, match):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"io.resume": True}, "resume"),
+    ({"dist.dp": 2}, "dist.dp"),
     ({"train.loss": "curriculum"}, "curriculum"),
     ({"io.render_every": 10}, "render"), ({"io.profile": True}, "profile"),
-    ({"io.tensorboard": True}, "tensorboard"), ({"train.loss": "gan"}, "BCE"),
+    ({"io.tensorboard": True}, "tensorboard"),
+    ({"dist.coordinator_address": "10.0.0.1:8476"}, "coordinator_address"),
+    ({"dist.num_processes": 2}, "num_processes"),
 ])
 def test_train_raises_for_later_items(override, match):
     _, cfg = _cfgs()
