@@ -69,9 +69,12 @@ Needs one CUDA card (exits non-zero without one, and without the
    steps and ``io.keep_best``), wgan_gp_32 with
    ``model.pallas_gp=fused`` for 30, wgan_gp_32_structural with it for
    10, toy_dcgan_16 (the BCE GAN step; the CLI's default preset, run
-   without ``--preset``) for its 100 and conditional_32 (the conditional
-   WGAN-GP step with the cond-match loss) for 10, each with checked
-   metrics, checkpoint keys and launch counters (and no call of the plain
+   without ``--preset``) for its 100, conditional_32 (the conditional
+   WGAN-GP step with the cond-match loss) for 10, curriculum_16 (the
+   curriculum step, K2 core, the quality probe every 5 steps) for 10 and
+   curriculum_16_joint with the fused GP for 10, each with checked
+   metrics, checkpoint keys (the curriculum's agents, their Adams and the
+   baseline too) and launch counters (and no call of the plain
    gn_act_bwd_folded on a CUDA tensor), then 1,024 levels exported from
    each checkpoint;
 8. one critic iteration and one generator update through the kernels held
@@ -79,21 +82,27 @@ Needs one CUDA card (exits non-zero without one, and without the
    batch and noise, at gumbel_64 (K2 core) and at wgan_gp_32 (fused GP):
    the losses, the GP and the critic's gradients against the plain path,
    each side's generator gradients against an f32 copy of the generator;
-   every generator parameter must get a non-zero gradient;
+   every generator parameter must get a non-zero gradient; then one whole
+   curriculum_16 step through the kernels, through the plain path and
+   through an f32 generator, from one state, batch and set of draws (the
+   agents' action noise included): tiles, losses, generator gradients
+   and the agents' updates (``curriculum_vs_plain``);
 9. the warm step time from a device-synchronised loop of the same step,
-   and a torch.profiler breakdown of training steps (device time by
-   kernel, idle share, host time by op), for both configurations;
-10. reproducibility: two seeded 3-step gumbel_64 runs through
-    ``api.train``, by default and under ``torch.use_deterministic_algorithms``,
-    compared array by array (and the first differing op named), under
-    torch's own TF32 settings, as the CLI runs; then a 2-step run resumed
-    for 1 step through ``io.resume=auto`` must equal an uninterrupted run
-    of this process bit for bit, and a CLI run in a fresh process sent
-    SIGTERM after its first step (it must exit 0 with a checkpoint before
-    step 3) and finished by ``--resume auto`` must equal an uninterrupted
-    CLI run; since the first training run of a process differs from the
-    later ones, a new process traces 3 steps twice and names the first
-    differing gradient (reported, not fatal);
+   and a torch.profiler breakdown of training steps (device time by kernel,
+   idle share, host time by op), for gumbel_64, wgan_gp_32 and
+   curriculum_16, the last with its two rollouts' host time and span and
+   one rollout's device operations;
+10. reproducibility: a fresh process runs 3 seeded gumbel_64 steps through
+    ``api.train`` three times, and its first run must equal its later ones
+    in every array (``first_run_check``); then two such runs here, by
+    default and under ``torch.use_deterministic_algorithms``, compared
+    array by array (and the first differing op named), under torch's own
+    TF32 settings, as the CLI runs; then a 2-step run resumed for 1 step
+    through ``io.resume=auto`` must equal the uninterrupted run of this
+    process bit for bit, so must a CLI run in a fresh process, and a CLI
+    run sent SIGTERM after its first step (it must exit 0 with a
+    checkpoint before step 3) and finished by ``--resume auto`` must equal
+    the uninterrupted CLI run;
 11. print the ``kernels`` JSON line, the card line, and the final
     ``{"ok": true, "device": ...}`` line.
 
@@ -147,8 +156,10 @@ QUALITY = ("--set", f"io.quality_every={QUALITY_EVERY}", "--set",
 # the training paths: (preset, CLI overrides, steps)
 TRAIN_RUNS = (("gumbel_64", QUALITY, 10), ("wgan_gp_32", FUSED, 30),
               ("wgan_gp_32_structural", FUSED, 10), ("toy_dcgan_16", (), 100),
-              ("conditional_32", (), 10))
+              ("conditional_32", (), 10), ("curriculum_16", QUALITY, 10),
+              ("curriculum_16_joint", FUSED, 10))
 REPRO_CORPUS = 64            # data.corpus_size of the repro phase's runs
+REPRO_STEPS = 3              # train.steps of each of the repro phase's runs
 # a sum over many bf16 products (dx, dgamma/dbeta): max |diff| / max |ref|
 SUM_TOL = 2.0 ** -6
 K2_TOL = 1e-5                # K2 core in f32: max rel error
@@ -166,6 +177,22 @@ PER_STEP["toy_dcgan_16"] = {"K1": 4, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
                             "K2 core fwd": 0, "K2 core bwd": 0, "K2 fused": 0}
 # the projection critic takes the K2 core ('auto'; fused refuses it)
 PER_STEP["conditional_32"] = {**PER_STEP["wgan_gp_32"], "K2 fused": 0}
+# the curriculum (n_critic 3): three fakes and ONE generator forward (the
+# levels the agents play are the G update's fake) through the two stages,
+# the G update's backward, three GPs; the agents run no kernel of the port
+PER_STEP["curriculum_16"] = {"K1": 8, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
+                             "K2 core fwd": 3, "K2 core bwd": 3,
+                             "K2 fused": 0}
+PER_STEP["curriculum_16_joint"] = {**PER_STEP["curriculum_16"],
+                                   "K2 fused": 3}
+# the curriculum's metrics besides d_loss, g_loss, gp, wdist
+CURRICULUM_KEYS = ("g_gan", "g_rl", "playability", "playability_weak",
+                   "return_strong", "return_weak", "skill_gap",
+                   "agent_entropy")
+# kernels vs plain curriculum step: the agents' parameter updates of the two
+# sides point the same way (cosine of the two updates), though the levels
+# they play differ where a bf16 rounding moves a tile's argmax
+AGENT_COS = 0.9
 # K2 fused against its plain version, per sample, max |diff| over the sample
 # / max |ref| over the batch.  Both round to bf16 at the same points, but
 # their f32 sums run in another order, so here and there a conv output
@@ -1922,6 +1949,11 @@ def train_path(name, overrides, steps, workdir):
     t = preset(name).train
     keys = ["d_loss", "g_loss", *(("d_real", "d_fake") if t.loss == "gan"
                                   else ("gp", "wdist")), "kl", "step_ms"]
+    cur = preset(name).curriculum
+    if t.loss == "curriculum":
+        keys += CURRICULUM_KEYS
+        if cur.w_solvable or cur.gap_on_solvable:
+            keys.append("solvable_frac")
     if t.w_presence:
         keys.append("presence")
     if t.w_cond_match:
@@ -1946,8 +1978,20 @@ def train_path(name, overrides, steps, workdir):
             f"step {r['step']} " + " ".join(f"{k}={r[k]:.4g}" for k in qkeys)
             for r in q) + f"; ckpt_best/{best[0]}")
     ckpt = os.path.join(out, "ckpt", f"step_{steps:08d}")
-    arrays = np.load(os.path.join(ckpt, "arrays.npz")).files
-    for prefix in ("generator/", "g_ema/", "discriminator/"):
+    arrays = load_arrays(ckpt)
+    prefixes = ["generator/", "g_ema/", "discriminator/"]
+    if t.loss == "curriculum":
+        prefixes += ["agent_strong/", "agent_weak/", "opt_as/0/mu/",
+                     "opt_aw/0/nu/"]
+        if (int(arrays["opt_as/0/count"]) != steps
+                or not float(arrays["g_baseline"])):
+            fail(f"checkpoint {ckpt}: agent Adam count "
+                 f"{int(arrays['opt_as/0/count'])}, g_baseline "
+                 f"{float(arrays['g_baseline'])}")
+        print(f"  checkpoint: agents, their Adams (count "
+              f"{int(arrays['opt_as/0/count'])}) and g_baseline "
+              f"{float(arrays['g_baseline']):.5g}")
+    for prefix in prefixes:
         if not any(k.startswith(prefix) for k in arrays):
             fail(f"checkpoint {ckpt} holds no {prefix} arrays")
     levels_path = os.path.join(workdir, f"trained_levels_{name}.npz")
@@ -1977,17 +2021,18 @@ def differing(a: dict, b: dict) -> list:
         k for k in a if k in b and not np.array_equal(a[k], b[k])]
 
 
-def reproducibility(device, workdir, steps=3):
-    """Two seeded gumbel_64 runs of ``steps`` steps through ``api.train``,
-    by default and under ``torch.use_deterministic_algorithms`` (warn
-    only): whether the final checkpoints are bit-identical, which arrays
-    differ, and the steps' ``step_ms``.  Where the default runs differ, one
-    step run twice from one state names the first module output or
-    parameter gradient that differs (``first_divergence``); that reports
-    and fails only on an error.  Then ``resumed_runs`` holds a resumed and
-    a SIGTERM-stopped run to the first default run.  The phase runs with
-    torch's own TF32 settings, as the train CLI does (main() turns TF32 off
-    for the plain references)."""
+def reproducibility(device, workdir, steps=REPRO_STEPS):
+    """A fresh process runs ``steps`` seeded gumbel_64 steps through
+    ``api.train`` three times: its first run must equal its later ones in
+    every array (``first_run_check``; fatal).  Then two such runs here, by
+    default and under ``torch.use_deterministic_algorithms`` (warn only):
+    whether the final checkpoints are bit-identical, which arrays differ,
+    and the steps' ``step_ms``; where the default runs differ, one step run
+    twice from one state names the first module output or parameter
+    gradient that differs (``first_divergence``).  Then ``resumed_runs``
+    holds a resumed and a SIGTERM-stopped run to the first default run.
+    The phase runs with torch's own TF32 settings, as the train CLI does
+    (main() turns TF32 off for the plain references)."""
     import numpy as np
     import torch
     from levelgan_torch import api
@@ -1996,6 +2041,16 @@ def reproducibility(device, workdir, steps=3):
     cfg = preset("gumbel_64").override(**{
         "train.steps": steps, "data.corpus_size": REPRO_CORPUS,
         "io.log_every": 1})
+    fresh = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(min(1, chip_smoke.first_run_check()))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    for line in fresh.stdout.strip().splitlines():
+        print("  " + line)
+    if fresh.returncode != 0:
+        fail("the first training run of a fresh process differs from its "
+             f"later runs: {fresh.stdout[-800:]}{fresh.stderr[-2000:]}")
     differs, whole = {}, None
     # torch's own TF32 settings, as the CLI subprocess below runs: cuDNN's
     # f32 convolutions (the stages' dw) take TF32 by default
@@ -2028,9 +2083,7 @@ def reproducibility(device, workdir, steps=3):
                   + (f" (first: {diff[:4]})" if diff else "")
                   + "; step_ms after the first step "
                   + ", ".join(f"{v:.2f}" for v in step_ms))
-            # the second run: this process is warm by then (the first
-            # training run of a process differs, ``fresh_vs_warm``)
-            whole = whole or arrays[1]
+            whole = whole or arrays[0]
         torch.use_deterministic_algorithms(False)
         if differs[False]:
             print("  " + first_divergence(cfg, device))
@@ -2042,19 +2095,14 @@ def reproducibility(device, workdir, steps=3):
 
 
 def resumed_runs(cfg, device, workdir, whole: dict):
-    """Resume and stop against uninterrupted runs, array by array; each
-    like for like, since the first training run of a process differs from
-    the later ones (``fresh_vs_warm`` traces both in a new process and
-    names the first differing gradient; it reports only, as does the
-    uninterrupted CLI run held to ``whole``).
-
-    In this process (warm): a run of ``cfg`` stopped after 2 steps and
-    resumed through ``io.resume=auto`` must equal ``whole``, an
-    uninterrupted run made here after another.  Through the train CLI,
-    each in a fresh process: an uninterrupted run, and a run sent SIGTERM
-    after its first logged step (it must exit 0 with a checkpoint before
-    the last step) that ``--resume auto`` then finishes here; the stopped
-    run must equal the uninterrupted CLI run."""
+    """Resume and stop against uninterrupted runs, array by array, all
+    fatal: a run of ``cfg`` stopped after 2 steps and resumed through
+    ``io.resume=auto`` here must equal ``whole``, an uninterrupted run made
+    here; through the train CLI, each in a fresh process, an uninterrupted
+    run must equal ``whole`` too, and a run sent SIGTERM after its first
+    logged step (it must exit 0 with a checkpoint before the last step)
+    that ``--resume auto`` then finishes here must equal the uninterrupted
+    CLI run."""
     import signal
     from levelgan_torch import api
     from levelgan_torch.cli import train as cli_train
@@ -2063,18 +2111,13 @@ def resumed_runs(cfg, device, workdir, whole: dict):
     steps = cfg.train.steps
     here = os.path.dirname(os.path.abspath(__file__))
 
-    def check(what, arrays, ref, ref_name, fatal):
+    def check(what, arrays, ref, ref_name):
         diff = differing(arrays, ref)
         print(f"  {what}: {'bit-identical to' if not diff else 'differs from'}"
               f" {ref_name} in {len(ref)} arrays"
               + (f" ({len(diff)} differ, first: {diff[:4]})" if diff else ""))
-        if diff and fatal:
+        if diff:
             fail(f"{what} differs from {ref_name}: {diff[:8]}")
-
-    diag = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.fresh_vs_warm()"],
-        cwd=here, capture_output=True, text=True, timeout=600)
-    print("  " + (diag.stdout.strip().splitlines() or [diag.stderr[-2000:]])[-1])
 
     out = os.path.join(workdir, "repro_resumed")
     api.train(cfg.override(**{"io.out_dir": out, "train.steps": 2}),
@@ -2083,7 +2126,7 @@ def resumed_runs(cfg, device, workdir, whole: dict):
                     device=device, echo=False)
     check("2 steps, then 1 resumed through io.resume=auto",
           load_arrays(res["checkpoint"]), whole,
-          f"the uninterrupted {steps}-step run", True)
+          f"the uninterrupted {steps}-step run")
 
     cfg_path = os.path.join(workdir, "repro_config.json")
     with open(cfg_path, "w") as fh:
@@ -2122,8 +2165,7 @@ def resumed_runs(cfg, device, workdir, whole: dict):
     fresh = load_arrays(all_checkpoints(os.path.join(
         workdir, "repro_cli", "ckpt"))[-1])
     check(f"the CLI's uninterrupted {steps}-step run (a fresh process)",
-          fresh, whole, f"the uninterrupted {steps}-step run in this process",
-          False)
+          fresh, whole, f"the uninterrupted {steps}-step run in this process")
 
     out = os.path.join(workdir, "repro_sigterm")
     argv, rc, stopped, text = cli(out, True)
@@ -2137,17 +2179,20 @@ def resumed_runs(cfg, device, workdir, whole: dict):
         fail("--resume auto after SIGTERM failed")
     check(f"stopped by SIGTERM at step {stopped}, finished with --resume auto",
           load_arrays(all_checkpoints(os.path.join(out, "ckpt"))[-1]), fresh,
-          "the CLI's uninterrupted run", True)
+          "the CLI's uninterrupted run")
 
 
 def step_trace(cfg, device, steps: int = 1) -> list:
     """``steps`` train steps from a state made from one seed, on a seeded
     random corpus on the device, with the batches and randomness
     ``api.train`` draws: (name, checksum) of every leaf module output and
-    parameter gradient in the order they were computed, and of the
-    parameters and the Adam moments after each step."""
+    parameter gradient in the order they were computed, of the gradient
+    each use of a critic GroupNorm scale or bias receives, and of the
+    parameters and the Adam moments after each step; each step under
+    ``api.step_mode``, as api.train runs it."""
     import torch
-    from levelgan_torch.api import sample_batch, step_generator
+    from levelgan_torch.api import sample_batch, step_generator, step_mode
+    from levelgan_torch.models import critic as critic_mod
     from levelgan_torch.train.state import create_state
     from levelgan_torch.train.wgan_gp import make_wgan_gp_step
 
@@ -2166,6 +2211,19 @@ def step_trace(cfg, device, steps: int = 1) -> list:
             rec.append((f"step {at[0]} {name}",
                         torch.stack([t.sum(), t.square().sum()])))
 
+    names = {id(p): n for n, p in state.critic.named_parameters()}
+    plain_gn = critic_mod.group_norm
+
+    def gn_uses(x, gamma, beta, *a):
+        # each use gets an alias of its own, so its gradient shows alone
+        if torch.is_grad_enabled():
+            gamma, beta = gamma.view_as(gamma), beta.view_as(beta)
+            for t, p in ((gamma, "scale"), (beta, "bias")):
+                t.register_hook(lambda g, n=names.get(id(t._base), p):
+                                note(f"D {n} use gradient", g))
+        return plain_gn(x, gamma, beta, *a)
+    critic_mod.group_norm = gn_uses
+
     for prefix, model in (("G", state.generator), ("D", state.critic)):
         for name, mod in model.named_modules():
             if not list(mod.children()):
@@ -2179,7 +2237,8 @@ def step_trace(cfg, device, steps: int = 1) -> list:
     for i in range(steps):
         at[0] = i
         rng = step_generator(cfg, i, device)
-        step_fn(state, sample_batch(corpus, cfg, rng), generator=rng)
+        with step_mode():
+            step_fn(state, sample_batch(corpus, cfg, rng), generator=rng)
         for prefix, model, opt in (("G", state.generator, state.opt_g),
                                    ("D", state.critic, state.opt_d)):
             for name, p in model.named_parameters():
@@ -2189,6 +2248,7 @@ def step_trace(cfg, device, steps: int = 1) -> list:
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
+    critic_mod.group_norm = plain_gn
     return rec
 
 
@@ -2212,6 +2272,34 @@ def first_divergence(cfg, device) -> str:
                             "one step twice from one seed")
 
 
+def first_run_check() -> int:
+    """Run in a fresh process: three ``REPRO_STEPS``-step gumbel_64 runs
+    through ``api.train``; prints whether the process's first run equals
+    its second and its second its third, array by array, and returns how
+    many arrays of the first differ from the second."""
+    from levelgan_torch import api
+    from levelgan_torch.config import preset
+
+    cfg = preset("gumbel_64").override(**{
+        "train.steps": REPRO_STEPS, "data.corpus_size": REPRO_CORPUS,
+        "io.log_every": 1})
+    arrays = []
+    with tempfile.TemporaryDirectory() as work:
+        for run in (0, 1, 2):
+            res = api.train(cfg.override(**{"io.out_dir": os.path.join(
+                work, str(run))}), device="cuda", echo=False)
+            arrays.append(load_arrays(res["checkpoint"]))
+    first = []
+    for a, b in ((0, 1), (1, 2)):
+        diff = differing(arrays[a], arrays[b])
+        first += diff if a == 0 else []
+        print(f"first-run check gumbel_64: the process's run {a + 1} against "
+              f"its run {b + 1} ({REPRO_STEPS} steps each): {len(diff)} of "
+              f"{len(arrays[0])} arrays differ"
+              + (f" ({diff[:4]})" if diff else ""), flush=True)
+    return len(first)
+
+
 def fresh_vs_warm(steps: int = 3) -> None:
     """Run in a fresh process (the repro phase starts it): ``steps`` traced
     steps of the repro configuration, then the same again in this process,
@@ -2226,38 +2314,94 @@ def fresh_vs_warm(steps: int = 3) -> None:
                            "same in that process warm"))
 
 
+def make_step(cfg):
+    """The train step of ``cfg``'s loss (WGAN-GP or the curriculum)."""
+    from levelgan_torch.train.curriculum import make_curriculum_step
+    from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+    return (make_curriculum_step if cfg.train.loss == "curriculum"
+            else make_wgan_gp_step)(cfg)
+
+
+class RolloutClock:
+    """Wraps the curriculum step's ``rollout``: CUDA events and the host
+    clock around each call (no synchronisation), summed per step."""
+
+    def __init__(self):
+        from levelgan_torch.train import curriculum
+        self.mod, self.orig, self.calls = curriculum, curriculum.rollout, []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = self.orig(*a, **kw)
+            end.record()
+            self.calls.append((start, end, time.perf_counter() - t0))
+            return out
+        self.mod.rollout = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rollout = self.orig
+
+    def take(self):
+        """(device ms, host ms) of the calls since the last take, after a
+        device synchronisation."""
+        import torch
+        torch.cuda.synchronize()
+        dev = sum(a.elapsed_time(b) for a, b, _ in self.calls)
+        host = 1e3 * sum(h for _, _, h in self.calls)
+        self.calls = []
+        return dev, host
+
+
 def warm_steps(cfg, device):
     """The warm step time: a device-synchronised loop of the same step
-    (create_state + make_wgan_gp_step, per-step batches and noise as
-    api.train draws them) over a random uint8 corpus already on the
-    device; the median over steps 10-30."""
+    (create_state + the loss's step, per-step batches and noise as
+    api.train draws them, under ``api.step_mode`` as api.train runs it)
+    over a random uint8 corpus already on the device; the median over steps
+    10-30.
+    For the curriculum also the two rollouts' share of it: their span
+    between CUDA events and their host time."""
     import torch
-    from levelgan_torch.api import sample_batch, step_generator
+    from levelgan_torch.api import sample_batch, step_generator, step_mode
     from levelgan_torch.train.state import create_state
-    from levelgan_torch.train.wgan_gp import make_wgan_gp_step
 
     m = cfg.model
     state = create_state(cfg, device)
-    step_fn = make_wgan_gp_step(cfg)
+    step_fn = make_step(cfg)
     corpus = torch.randint(0, m.n_tiles, (CORPUS_CUT, m.level_size,
                                           m.level_size), dtype=torch.uint8,
                            device=device,
                            generator=torch.Generator(device).manual_seed(9))
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(WARM_STEPS):
-        rng = step_generator(cfg, i, device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step_fn(state, sample_batch(corpus, cfg, rng),
-                           generator=rng)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
+    times, roll = [], []
+    with RolloutClock() as clock, step_mode():
+        for i in range(WARM_STEPS):
+            rng = step_generator(cfg, i, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, sample_batch(corpus, cfg, rng),
+                               generator=rng)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            roll.append(clock.take())
     warm = statistics.median(times[10:])
     print(f"  warm step: median {warm:.3f} ms over steps 10-{WARM_STEPS} "
           f"(min {min(times[10:]):.3f}, max {max(times[10:]):.3f}; first "
           f"step {times[0]:.1f} ms); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if cfg.train.loss == "curriculum":
+        dev = statistics.median(d for d, _ in roll[10:])
+        host = statistics.median(h for _, h in roll[10:])
+        print(f"  the two rollouts ({cfg.curriculum.rollout_steps} env steps "
+              f"each, B = {cfg.train.batch_size}): median {host:.3f} ms of "
+              f"host time and {dev:.3f} ms between their CUDA events a step, "
+              f"{host / warm:.3f} of the warm step's wall time")
     return state, step_fn, corpus
 
 
@@ -2370,18 +2514,20 @@ def profile_train(state, step_fn, corpus, cfg, steps=3):
     """Phase 9: where a training step's time goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from levelgan_torch.api import sample_batch, step_generator
+    from levelgan_torch.api import sample_batch, step_generator, step_mode
 
     rngs = [step_generator(cfg, 100 + i, corpus.device) for i in range(steps)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with step_mode(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for rng in rngs:
             state, _ = step_fn(state, sample_batch(corpus, cfg, rng),
                                generator=rng)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    if cfg.train.loss == "curriculum":
+        rollout_ops(state, cfg, corpus)
     rows = device_rows(prof)
     if not rows:
         print("  profiler recorded no device kernels: breakdown not measured")
@@ -2415,6 +2561,161 @@ def profile_train(state, step_fn, corpus, cfg, steps=3):
     for e in host[:10]:
         print(f"    {e.self_cpu_time_total / 1e3 / steps:8.3f} ms  "
               f"x{e.count // steps:<5d} {e.key[:80]}")
+
+
+def rollout_ops(state, cfg, corpus):
+    """The device operations and device time of one rollout at the step's
+    shape (the strong agent on B corpus levels), by torch.profiler; the
+    first rollout runs under ``set_sync_debug_mode('error')``, so a rollout
+    that synchronises the host with the device fails the phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from levelgan_torch.data.codec import encode
+    from levelgan_torch.env.sim import rollout
+    from levelgan_torch.train.curriculum import env_params
+
+    ids = corpus[:cfg.train.batch_size]
+    onehot = encode(ids, cfg.model.n_tiles)
+    g = torch.Generator(corpus.device).manual_seed(5)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rollout(state.agent_strong, ids, onehot, env_params(cfg),
+                generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout(state.agent_strong, ids, onehot, env_params(cfg), generator=g)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = device_rows(prof)
+    busy = sum(dev_us(e) for e in rows) / 1e3
+    print(f"  one rollout (profiled): {sum(e.count for e in rows)} device "
+          f"ops, {busy:.3f} ms of device time in {wall:.3f} ms of wall; its "
+          "largest: " + "; ".join(f"x{e.count} {e.key[:50]}"
+                                  for e in rows[:4]))
+
+
+def curriculum_vs_plain(cfg, device):
+    """Phase 8 for the curriculum: one whole step through the kernels, one
+    through the plain path (every generator stage's plain version, the
+    plain GP) and one through an f32 copy of the plain generator, each from
+    the same seeded state (agents included), batch and draws (the agents'
+    action noise included).  The levels the agents play are each side's own
+    hard Gumbel samples, so where a bf16 rounding moves a tile's argmax the
+    rollouts differ, and so do the critic's fakes: the share of identical
+    tiles must reach TILE_AGREE, the losses agree within LOSS_TOL, the
+    generator's gradients (the REINFORCE term included) by the f32 rule of
+    ``train_vs_plain``, and each agent's parameter update points the way of
+    the plain side's (cosine at least AGENT_COS).  The critic's gradients
+    on one shared fake are ``train_vs_plain``'s check."""
+    import copy
+    import dataclasses
+
+    import torch
+    from levelgan_torch.api import step_mode
+    from levelgan_torch.models import Generator
+    from levelgan_torch.train import curriculum
+    from levelgan_torch.train.curriculum import (draw_curriculum_noise,
+                                                 make_curriculum_step)
+    from levelgan_torch.train.state import create_state
+
+    m = cfg.model
+    plain_cfg = cfg.override(**{"model.pallas_gp": "xla"})
+    base = create_state(cfg, device, seed=11)
+    g = torch.Generator(device).manual_seed(12)
+    ids = torch.randint(0, m.n_tiles, (cfg.train.n_critic, B_TRAIN,
+                                       m.level_size, m.level_size),
+                        dtype=torch.uint8, device=device, generator=g)
+    noise = draw_curriculum_noise(cfg, cfg.train.n_critic, B_TRAIN, device, g)
+    res = {}
+    for side, step_cfg, dtype, plain in (
+            ("kernels", cfg, m.dtype, False), ("plain", plain_cfg, m.dtype,
+                                               True),
+            ("f32", plain_cfg, "float32", True)):
+        gen = Generator(dataclasses.replace(m, dtype=dtype))
+        gen.load_state_dict(base.generator.state_dict())
+        gen = gen.to(device)
+        if plain:
+            gen.forward = (lambda z, cond=None, _g=gen:
+                           Generator.forward(_g, z, cond, plain=True))
+        state = create_state(cfg, device, generator=gen,
+                             critic=copy.deepcopy(base.critic),
+                             agents=(copy.deepcopy(base.agent_strong),
+                                     copy.deepcopy(base.agent_weak)))
+        grads, levels = {"G": [], "D": []}, []
+        for key, opt in (("G", state.opt_g), ("D", state.opt_d)):
+            def caught(closure=None, _opt=opt, _key=key, _step=opt.step):
+                grads[_key].append([p.grad.detach().clone()
+                                    for grp in _opt.param_groups
+                                    for p in grp["params"]])
+                return _step(closure)
+            opt.step = caught
+        orig = curriculum.rollout
+
+        def seen(policy, level_ids, *a, **kw):
+            levels.append(level_ids)
+            return orig(policy, level_ids, *a, **kw)
+        curriculum.rollout = seen
+        before = read_counts()
+        try:
+            with step_mode():
+                _, met = make_curriculum_step(step_cfg)(state, ids,
+                                                        noise=noise)
+            torch.cuda.synchronize()
+        finally:
+            curriculum.rollout = orig
+        after = read_counts()
+        res[side] = {"met": {k: float(v) for k, v in met.items()
+                             if k != "gen_hist"},
+                     "grads": grads, "levels": levels[0],
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "agents": [torch.cat([(p - q).detach().flatten()
+                                           for p, q in zip(
+                         getattr(state, a).parameters(),
+                         getattr(base, a).parameters())])
+                         for a in ("agent_strong", "agent_weak")]}
+    k, p, ref = res["kernels"], res["plain"], res["f32"]
+    agree = float((k["levels"] == p["levels"]).float().mean())
+    loss_err = max(abs(k["met"][n] - p["met"][n]) / max(abs(p["met"][n]), 0.1)
+                   for n in ("d_loss", "gp", "g_gan"))
+    names = [n for n, _ in base.generator.named_parameters()]
+    g_err = sorted(((rel_err(a, r), rel_err(b, r), n) for n, a, b, r in zip(
+        names, k["grads"]["G"][0], p["grads"]["G"][0], ref["grads"]["G"][0])),
+        key=lambda e: e[0] - BF16_RATIO * e[1], reverse=True)
+    cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+           for a, b in zip(k["agents"], p["agents"])]
+    # the critic's first update, before the two sides' critics part (each
+    # side's fakes are its own generator's: checked with one shared fake
+    # by ``train_vs_plain``); reported
+    d_err = max(rel_err(a, b) for a, b in zip(k["grads"]["D"][0],
+                                             p["grads"]["D"][0]))
+    print(f"  levels: {agree:.5f} of the tiles identical, kernels vs plain "
+          f"(tol {TILE_AGREE}); launches {k['launches']}")
+    print("  metrics kernels / plain / f32: " + "; ".join(
+        f"{n} {k['met'][n]:.5g} / {p['met'][n]:.5g} / {ref['met'][n]:.5g}"
+        for n in ("d_loss", "gp", "g_gan", "g_rl", "g_loss", "playability",
+                  "skill_gap", "agent_entropy")))
+    print(f"  loss err {loss_err:.3g} (tol {LOSS_TOL}); the critic's first "
+          f"update's gradients, kernels vs plain, max rel err {d_err:.3g} "
+          f"(reported: the fakes differ); the agents' updates, cosine "
+          f"kernels vs plain: strong {cos[0]:.4f}, weak {cos[1]:.4f} (tol "
+          f"{AGENT_COS})")
+    print("  generator gradients vs the f32 generator (kernels / plain bf16; "
+          f"allowed kernels <= {BF16_RATIO} * plain + {BF16_SLACK}), closest "
+          "to the limit: " + ", ".join(f"{n} {a:.3g}/{b:.3g}"
+                                       for a, b, n in g_err[:6]))
+    if k["launches"] != PER_STEP[cfg.preset] or any(
+            v for s in (p, ref) for v in s["launches"].values()):
+        fail(f"kernel side launched {k['launches']} (want "
+             f"{PER_STEP[cfg.preset]}), plain sides {p['launches']} "
+             f"{ref['launches']}")
+    if (agree < TILE_AGREE or loss_err > LOSS_TOL or min(cos) < AGENT_COS
+            or any(a > BF16_RATIO * b + BF16_SLACK for a, b, _ in g_err)):
+        fail("the curriculum step through the kernels disagrees with the "
+             "plain path")
 
 
 def kernels_line(records, counts, train_records, train_counts):
@@ -2557,6 +2858,8 @@ def main(argv=()) -> int:
     cfg = preset("gumbel_64")
     # the second configuration: the fused GP's path
     cfg32 = preset("wgan_gp_32").override(**{"model.pallas_gp": "fused"})
+    # the third: the curriculum's path through the 16x16 critic
+    cfg16 = preset("curriculum_16")
     records = counts = None
     train_records, train_counts = [], {}
     if phase("parity"):
@@ -2613,8 +2916,11 @@ def main(argv=()) -> int:
                 print(f"training through the kernels vs the plain path "
                       f"({c.preset}, pallas_gp={c.model.pallas_gp}):")
                 train_vs_plain(c, device)
+            print("a curriculum step through the kernels vs the plain path "
+                  "(curriculum_16, K2 core):")
+            curriculum_vs_plain(cfg16, device)
         if phase("train_profile"):
-            for c in (cfg, cfg32):
+            for c in (cfg, cfg32, cfg16):
                 print(f"warm steps and profile: {c.preset} training, "
                       f"pallas_gp={c.model.pallas_gp}")
                 state, step_fn, corpus = warm_steps(c, device)

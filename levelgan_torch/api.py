@@ -1,10 +1,12 @@
 """Public API: ``train(cfg)``, the training entry point.
 
-Port of ``levelgan/api.py:train`` for the tile family's GAN and WGAN-GP
-presets (``toy_dcgan_16``, ``wgan_gp_32``, ``wgan_gp_32_structural``,
-``gumbel_64``, ``conditional_32``).  ``train.loss='gan'`` runs the BCE
-step (``train/gan.py``) on batches [B, H, W], ``'wgan_gp'`` the WGAN-GP
-step on [n_critic, B, H, W].  The corpus is built on the host once and
+Port of ``levelgan/api.py:train`` for the tile family's presets
+(``toy_dcgan_16``, ``wgan_gp_32``, ``wgan_gp_32_structural``,
+``gumbel_64``, ``conditional_32``, ``curriculum_16``,
+``curriculum_16_joint``).  ``train.loss='gan'`` runs the BCE step
+(``train/gan.py``) on batches [B, H, W], ``'wgan_gp'`` the WGAN-GP step
+and ``'curriculum'`` the agent-in-the-loop step (``train/curriculum.py``)
+on [n_critic, B, H, W].  The corpus is built on the host once and
 staged on the device; each step's batch indices are drawn on the device
 from a ``torch.Generator`` seeded by (``train.seed``, step), and the same
 generator then draws the step's noise, so a step's randomness depends on
@@ -20,6 +22,9 @@ them.  Every ``io.quality_every`` steps a quality probe samples
 three floats cross to the host); with ``io.keep_best`` the state of the
 best ``solvable_frac`` so far is kept in ``ckpt_best/`` (the best starts
 again from -1 after a resume, as in the JAX package).
+
+Each step runs under ``step_mode``: every backward on the calling thread,
+so that a run's bits do not depend on whether it is its process's first.
 
 ``io.resume``: ``'auto'`` restores the newest readable checkpoint of
 ``<out_dir>/ckpt`` (walking back past unreadable ones, raising when
@@ -42,12 +47,13 @@ and is ignored, as are ``io.compile_cache`` (XLA's cache) and
 Not in this slice, each raising ``NotImplementedError`` rather than being
 skipped: ``io.render_every`` (PNG renders), ``io.profile``,
 ``io.tensorboard``, data parallelism (``dist.dp > 1``,
-``dist.coordinator_address``, ``dist.num_processes > 1``), the curriculum
-loss and the track family.
+``dist.coordinator_address``, ``dist.num_processes > 1``) and the track
+family.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import signal
@@ -66,13 +72,15 @@ from levelgan_torch.lio.checkpoint import (all_checkpoints, load_checkpoint,
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
 from levelgan_torch.lio.quality import playability
 from levelgan_torch.models import sample_head
+from levelgan_torch.train.curriculum import make_curriculum_step
 from levelgan_torch.train.gan import corpus_cond_scale, make_gan_step
 from levelgan_torch.train.state import create_state
 from levelgan_torch.train.wgan_gp import make_wgan_gp_step
 
 _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 _PROBE_TAG = 0x9B0BE         # the quality probe's stream
-_STEPS = {"gan": make_gan_step, "wgan_gp": make_wgan_gp_step}
+_STEPS = {"gan": make_gan_step, "wgan_gp": make_wgan_gp_step,
+          "curriculum": make_curriculum_step}
 
 
 def _not_ported(cfg: Config) -> None:
@@ -88,14 +96,27 @@ def _not_ported(cfg: Config) -> None:
         (d.num_processes > 1, f"dist.num_processes={d.num_processes}: "
                               "multi-process training (dist/mesh.py)"),
         (m.family != "tile", "the track family (track/)"),
-        (t.loss == "curriculum", "the curriculum step (train/curriculum.py "
-                                 "with env/)"),
     ]
     for on, why in later:
         if on:
             raise NotImplementedError(f"not ported yet: {why}")
     if t.loss not in _STEPS:
         raise ValueError(f"unknown loss '{t.loss}'")
+
+
+@contextlib.contextmanager
+def step_mode(debug_nans: bool = False):
+    """The autograd settings a train step runs under: anomaly mode for
+    ``io.debug_nans``, and every backward on the calling thread.  On the
+    card autograd runs a backward on a worker thread of its own, and the
+    nodes that the gradient penalty's double backward records there are
+    ordered against the forward's by two per-thread counters; a process's
+    first run then summed some parameter gradients in another order than
+    its later runs did (measured on an H100, PERF.md §6).  On one
+    thread the order is the forward's, in every run."""
+    with torch.autograd.set_detect_anomaly(debug_nans), \
+            torch.autograd.set_multithreading_enabled(False):
+        yield
 
 
 def _seeded(device, *words) -> torch.Generator:
@@ -135,10 +156,10 @@ def make_quality_probe(cfg: Config, n: int):
 def sample_batch(corpus: torch.Tensor, cfg: Config,
                  generator: torch.Generator) -> torch.Tensor:
     """Device-side batch ids from the staged corpus: [n_critic, B, H, W]
-    for WGAN-GP, [B, H, W] for the BCE GAN."""
+    for WGAN-GP and the curriculum, [B, H, W] for the BCE GAN."""
     t = cfg.train
-    shape = ((t.n_critic, t.batch_size) if t.loss == "wgan_gp"
-             else (t.batch_size,))
+    shape = ((t.batch_size,) if t.loss == "gan"
+             else (t.n_critic, t.batch_size))
     idx = torch.randint(0, corpus.shape[0], shape, device=corpus.device,
                         generator=generator)
     return corpus[idx]
@@ -147,9 +168,15 @@ def sample_batch(corpus: torch.Tensor, cfg: Config,
 def save_state(ckpt_dir: str, state, cfg: Config, step: int,
                keep: int) -> str:
     """The full-state checkpoint of ``state`` at ``step``."""
+    extra = {}
+    if hasattr(state, "agent_strong"):
+        extra = {"g_baseline": state.g_baseline, "agents": {
+            "agent_strong": (state.agent_strong, state.opt_as),
+            "agent_weak": (state.agent_weak, state.opt_aw)}}
     return save_checkpoint(ckpt_dir, state.generator, cfg, step,
                            critic=state.critic, g_ema=state.g_ema,
-                           opt_g=state.opt_g, opt_d=state.opt_d, keep=keep)
+                           opt_g=state.opt_g, opt_d=state.opt_d, keep=keep,
+                           **extra)
 
 
 def resume(cfg: Config, state, ckpt_dir: str, echo: bool = True):
@@ -261,7 +288,7 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
                 break
             rng = step_generator(cfg, i, dev)
             batch = sample_batch(corpus, cfg, rng)
-            with torch.autograd.set_detect_anomaly(io.debug_nans):
+            with step_mode(io.debug_nans):
                 state, metrics = step_fn(state, batch, generator=rng)
             if io.debug_nans:
                 _check_finite(i + 1, metrics)

@@ -17,11 +17,15 @@ schedule, ``opt_g/1/count`` (``scale_by_schedule``); both counts are
 ``ScheduledAdam.count``.  ``rng`` is uint32 key data of the shape
 ``train.prng_impl`` implies (threefry2x32: 2 words, rbg: 4), drawn from the
 run's seed and step: the JAX key stream cannot be reproduced in torch
-anyway.  ``g_baseline`` (the curriculum's REINFORCE baseline) is 0.
+anyway.  ``g_baseline`` is the curriculum's REINFORCE baseline (0 for the
+other losses); a curriculum state also writes its agents
+(``agent_strong/...``, ``agent_weak/...``) and their Adams (``opt_as/0/...``,
+``opt_aw/0/...``: ``optax.adam`` with a constant lr, so no schedule count).
 
-``load_checkpoint`` reads the whole state back into a ``GANState`` (the
-counterpart of the JAX package's ``load_checkpoint`` / ``flat_to_state``):
-from checkpoints that either package wrote, since both share the layout.
+``load_checkpoint`` reads the whole state back into a ``GANState`` or a
+``CurriculumState`` (the counterpart of the JAX package's
+``load_checkpoint`` / ``flat_to_state``): from checkpoints that either
+package wrote, since both share the layout.
 A key the run's models lack, or a leaf of another shape (a checkpoint of
 another model shape), is refused before anything is copied.
 """
@@ -36,12 +40,15 @@ import shutil
 import numpy as np
 import torch
 
-from levelgan_torch.bridge import (critic_params_to_flat,
+from levelgan_torch.bridge import (agent_params_to_flat,
+                                   critic_params_to_flat,
                                    generator_params_from_flat,
                                    generator_params_to_flat)
 from levelgan_torch.config import Config
 
 FORMAT_VERSION = 1
+# the curriculum's agents and the prefixes of their Adams
+AGENT_OPTS = {"agent_strong": "opt_as", "agent_weak": "opt_aw"}
 _STEP_DIR = re.compile(r"^step_(\d{8})$")
 _KEY_WORDS = {"threefry2x32": 2, "rbg": 4}   # uint32 words of a key
 _RNG_TAG = 0x5EED                            # separates the key's stream
@@ -85,13 +92,15 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
                     g_ema: torch.nn.Module | None = None,
                     opt_g: torch.optim.Optimizer | None = None,
                     opt_d: torch.optim.Optimizer | None = None,
-                    keep: int = 0) -> str:
+                    g_baseline: torch.Tensor | None = None,
+                    agents: dict | None = None, keep: int = 0) -> str:
     """Atomically write ``ckpt_dir/step_XXXXXXXX``; returns the path.
 
     With ``critic``, ``opt_g`` and ``opt_d`` (``ScheduledAdam``s over the
     generator's and the critic's parameters) the checkpoint holds the full
-    state.  ``keep > 0`` deletes all but the newest ``keep`` step
-    directories.
+    state; a curriculum state adds ``g_baseline`` and ``agents``
+    ({``agent_strong`` / ``agent_weak``: (policy, its Adam)}).  ``keep >
+    0`` deletes all but the newest ``keep`` step directories.
     """
     if (opt_g is None) != (opt_d is None) or (opt_g is not None
                                               and critic is None):
@@ -115,7 +124,11 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
         flat.update(_adam_to_flat(opt_g, generator, "opt_g", scheduled))
         flat.update(_adam_to_flat(opt_d, critic, "opt_d", scheduled))
         flat["rng"] = _rng_key_data(cfg, step)
-        flat["g_baseline"] = np.zeros((), np.float32)
+        flat["g_baseline"] = (np.zeros((), np.float32) if g_baseline is None
+                              else g_baseline.detach().float().cpu().numpy())
+    for name, (policy, opt) in (agents or {}).items():
+        flat.update(agent_params_to_flat(policy.state_dict(), name))
+        flat.update(_adam_to_flat(opt, policy, AGENT_OPTS[name], False))
     flat["step"] = np.asarray(step, np.int32)
     arrays_path = os.path.join(tmp, "arrays.npz")
     np.savez(arrays_path, **flat)
@@ -176,12 +189,14 @@ def _leaf(flat: dict, key: str, shape: tuple) -> np.ndarray:
 
 def load_checkpoint(path: str, state, *,
                     prng_impl: str = "threefry2x32") -> tuple[object, Config]:
-    """Restore ``state`` (a ``GANState``) in place from a full-state
-    checkpoint directory; returns (state, the checkpoint's Config).
+    """Restore ``state`` (a ``GANState`` or ``CurriculumState``) in place
+    from a full-state checkpoint directory; returns (state, the
+    checkpoint's Config).
 
     Reads the three models (``g_ema`` falls back to the generator in
     checkpoints without an EMA), both optimizers with their counts and
-    moments (``ScheduledAdam.restore``) and ``step``; ``rng`` must have
+    moments (``ScheduledAdam.restore``) and ``step``; a curriculum state
+    also its agents, their Adams and ``g_baseline``; ``rng`` must have
     the shape ``prng_impl`` (the run's ``train.prng_impl``) implies.
     Every leaf is checked before any is copied, so a refused checkpoint
     leaves ``state`` as it was."""
@@ -201,9 +216,17 @@ def load_checkpoint(path: str, state, *,
     leaves = (_module_leaves(state.generator, flat, "generator")
               + _module_leaves(state.critic, flat, "discriminator")
               + _module_leaves(state.g_ema, flat, ema))
+    opts = [(state.opt_g, state.generator, "opt_g"),
+            (state.opt_d, state.critic, "opt_d")]
+    curriculum = hasattr(state, "agent_strong")
+    if curriculum:
+        for name, prefix in AGENT_OPTS.items():
+            policy = getattr(state, name)
+            leaves += _module_leaves(policy, flat, name)
+            opts.append((getattr(state, prefix), policy, prefix))
+        baseline = _leaf(flat, "g_baseline", ())
     adams = []
-    for opt, model, prefix in ((state.opt_g, state.generator, "opt_g"),
-                               (state.opt_d, state.critic, "opt_d")):
+    for opt, model, prefix in opts:
         count = int(_leaf(flat, f"{prefix}/0/count", ()))
         moments = {}
         for name, p in model.named_parameters():
@@ -217,6 +240,9 @@ def load_checkpoint(path: str, state, *,
             p.copy_(torch.from_numpy(np.array(arr, np.float32)))
     for opt, count, moments in adams:
         opt.restore(count, moments)
+    if curriculum:
+        state.g_baseline = torch.tensor(np.array(baseline, np.float32),
+                                        device=state.g_baseline.device)
     state.step = int(flat["step"])
     return state, Config.from_dict(manifest["config"])
 

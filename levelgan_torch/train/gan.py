@@ -89,7 +89,7 @@ def cond_match_loss(logits: torch.Tensor, cond: torch.Tensor,
 
 
 def check_step_config(cfg: Config) -> None:
-    """The refusals both tile steps share."""
+    """The refusals every tile step shares."""
     m, t = cfg.model, cfg.train
     if m.family != "tile":
         raise NotImplementedError(
@@ -98,7 +98,12 @@ def check_step_config(cfg: Config) -> None:
         raise ValueError("train.w_closure is track-family only "
                          "(heading-closure prior); tile levels have no "
                          "loop-closure invariant")
-    if t.w_cond_match and not m.cond_dim:
+
+
+def check_cond_match(cfg: Config) -> None:
+    """The refusal of the steps with a cond-match term (the curriculum step
+    has none and ignores ``train.w_cond_match``, as in the JAX package)."""
+    if cfg.train.w_cond_match and not cfg.model.cond_dim:
         raise ValueError("train.w_cond_match requires a conditional model "
                          "(model.cond_dim > 0): it matches the fake "
                          "sample's features to the requested condition")
@@ -156,6 +161,7 @@ def make_gan_step(cfg: Config, cond_scale: torch.Tensor | None = None):
     cond-match loss needs it and none is given)."""
     m, t = cfg.model, cfg.train
     check_step_config(cfg)
+    check_cond_match(cfg)
     if t.w_cond_match and cond_scale is None:
         cond_scale = corpus_cond_scale(cfg)
 

@@ -8,6 +8,12 @@ optimizer updates (with cosine decay the critic's horizon is scaled by
 ``n_critic``, since it updates that many times per train step).
 ``ScheduledAdam.restore`` continues it from a checkpoint's count and
 moments (``lio.checkpoint.load_checkpoint``).
+
+For ``train.loss='curriculum'`` the state is a ``CurriculumState``: the
+GAN state plus the REINFORCE baseline ``g_baseline`` (a 0-d f32 tensor)
+and the strong and weak agents with their Adams (``optax.adam`` at its
+defaults, constant lr).  ``create_state`` draws each agent from a
+generator of its own, seeded by (seed, agent), after G and D.
 """
 
 from __future__ import annotations
@@ -16,10 +22,15 @@ import copy
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from levelgan_torch.config import Config
+from levelgan_torch.env.agent import AgentPolicy, init_agent
 from levelgan_torch.models import Critic, Generator
+
+ADAM_BETAS = (0.9, 0.999)    # optax.adam's defaults, the agents' Adams
+_AGENT_TAG = 0xA6E7          # separates the agents' init streams
 
 
 class ScheduledAdam(torch.optim.Adam):
@@ -82,6 +93,16 @@ def make_optimizers(cfg: Config, gen: Generator, critic: Critic):
     return opt_g, opt_d
 
 
+def make_agent_optimizers(cfg: Config, strong: AgentPolicy,
+                          weak: AgentPolicy):
+    """``optax.adam(agent_lr)`` and ``optax.adam(weak_agent_lr)``."""
+    cur = cfg.curriculum
+    return (ScheduledAdam(strong.parameters(), lambda _: cur.agent_lr,
+                          ADAM_BETAS),
+            ScheduledAdam(weak.parameters(), lambda _: cur.weak_agent_lr,
+                          ADAM_BETAS))
+
+
 @dataclass
 class GANState:
     step: int
@@ -92,15 +113,27 @@ class GANState:
     g_ema: Generator
 
 
+@dataclass
+class CurriculumState(GANState):
+    g_baseline: torch.Tensor
+    agent_strong: AgentPolicy
+    agent_weak: AgentPolicy
+    opt_as: ScheduledAdam
+    opt_aw: ScheduledAdam
+
+
 def create_state(cfg: Config, device, *, seed: int | None = None,
                  generator: Generator | None = None,
-                 critic: Critic | None = None) -> GANState:
+                 critic: Critic | None = None,
+                 agents: tuple[AgentPolicy, AgentPolicy] | None = None
+                 ) -> GANState:
     """Fresh models (the Flax initializers, from a generator seeded with
     ``seed``, default ``train.seed``) or the given ones, fresh optimizers,
-    and ``g_ema`` a copy of G."""
+    and ``g_ema`` a copy of G; for the curriculum loss also the baseline
+    and the (strong, weak) ``agents``, fresh or given."""
     m = cfg.model
-    init = torch.Generator().manual_seed(cfg.train.seed if seed is None
-                                         else seed)
+    seed = cfg.train.seed if seed is None else seed
+    init = torch.Generator().manual_seed(seed)
     if generator is None:
         generator = Generator(m).init_params(init)
     if critic is None:
@@ -108,8 +141,19 @@ def create_state(cfg: Config, device, *, seed: int | None = None,
     generator, critic = generator.to(device), critic.to(device)
     opt_g, opt_d = make_optimizers(cfg, generator, critic)
     g_ema = copy.deepcopy(generator).requires_grad_(False)
-    return GANState(step=0, generator=generator, critic=critic, opt_g=opt_g,
-                    opt_d=opt_d, g_ema=g_ema)
+    base = dict(step=0, generator=generator, critic=critic, opt_g=opt_g,
+                opt_d=opt_d, g_ema=g_ema)
+    if cfg.train.loss != "curriculum":
+        return GANState(**base)
+    if agents is None:
+        agents = tuple(init_agent(m, torch.Generator().manual_seed(int(
+            np.random.SeedSequence([seed, _AGENT_TAG, i]).generate_state(
+                1, np.uint64)[0]))) for i in (0, 1))
+    strong, weak = (a.to(device) for a in agents)
+    opt_as, opt_aw = make_agent_optimizers(cfg, strong, weak)
+    return CurriculumState(**base, g_baseline=torch.zeros((), device=device),
+                           agent_strong=strong, agent_weak=weak,
+                           opt_as=opt_as, opt_aw=opt_aw)
 
 
 @torch.no_grad()

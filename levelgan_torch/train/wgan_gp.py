@@ -37,8 +37,9 @@ from levelgan_torch.ops.grad_penalty import make_gradient_penalty
 from levelgan_torch.ops.presence import (excess_weight_schedule,
                                          mbstd_scale_schedule,
                                          presence_penalty)
-from levelgan_torch.train.gan import (apply_grads, check_step_config,
-                                     cond_match_loss, corpus_cond_scale,
+from levelgan_torch.train.gan import (apply_grads, check_cond_match,
+                                     check_step_config, cond_match_loss,
+                                     corpus_cond_scale,
                                      current_tau, head_noise, prepare_real)
 from levelgan_torch.train.state import GANState, update_ema
 
@@ -117,6 +118,7 @@ def make_wgan_gp_step(cfg: Config, cond_scale: torch.Tensor | None = None):
     cond-match loss needs it and none is given)."""
     m, t = cfg.model, cfg.train
     check_step_config(cfg)
+    check_cond_match(cfg)
     if t.w_cond_match and cond_scale is None:
         cond_scale = corpus_cond_scale(cfg)
     critic_scan = make_critic_scan(cfg, make_gradient_penalty(m))

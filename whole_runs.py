@@ -9,21 +9,25 @@ gates each final checkpoint on the card with ``levelgan_torch.cli.
 validate`` (the corpus is carved here while the run trains), and writes to
 ``DIR/<preset>/``: ``g_ema.npz`` (the EMA generator's arrays and the step)
 beside the checkpoint's ``manifest.json``, ``validate.json`` and
-``metrics.jsonl``; ``DIR/runs.json`` holds the card's name and power
-limit and each run's wall time.  The full checkpoints stay in
-``whole_runs_work/`` (not kept: the optimizer state is 5x the EMA).
+``metrics.jsonl`` (a curriculum run's ``g_ema.npz`` also holds its
+trained agents, which the skill-gap gate plays); ``DIR/runs.json`` holds
+the card's name and power limit and each run's wall time.  The full
+checkpoints stay in ``whole_runs_work/`` (not kept: the optimizer state
+is 5x the EMA).
 
 ``python3 whole_runs.py record --runs DIR [DIR ...] --work SCRATCH [--out
 PORT_GATES.json]`` (on a CPU with the JAX package and its ``tools/``):
 rebuilds a full-state checkpoint around each EMA generator (the JAX tools
 read the whole state and sample from ``g_ema`` only; the critic and the
-optimizers there are fresh and unused), fits the conditional checkpoint's
+optimizers there are fresh and unused; a curriculum run's agents are its
+own), fits the conditional checkpoint's
 calibration on the shipped path (``tools.eval_cond --n 256 --repair
 --repair-placement uniform --fit-calibration``, as the JAX row's was
 fitted), runs ``tools.gate_all``
 on each with its default thresholds (kept in ``SCRATCH/<preset>/`` and
 reused), and writes one row per preset: steps, card, wall time, the port
 validate's gates, gate_all's gates and the JAX row it is compared with.
+Rows already in ``--out`` for runs that ``--runs`` does not hold are kept.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PRESETS = ("toy_dcgan_16", "wgan_gp_32", "wgan_gp_32_structural",
-           "conditional_32", "gumbel_64")
+           "conditional_32", "gumbel_64", "curriculum_16_joint",
+           "curriculum_16")
 SPLIT = {"gumbel_64"}         # trained as two runs joined by --resume auto
 LOG_EVERY = 100
 
@@ -61,7 +66,9 @@ JAX_ROWS = {
 GATES_ALL = {"wgan_gp_32": "runs/wgan_base",
              "wgan_gp_32_structural": "runs/wgan_gp_32_structural",
              "conditional_32": "runs/conditional_projboost",
-             "gumbel_64": "runs/gumbel_soak20k"}
+             "gumbel_64": "runs/gumbel_soak20k",
+             "curriculum_16_joint": "runs/curriculum_16_joint"}
+_KEEP = ("g_ema/", "agent_strong/", "agent_weak/")   # kept of a checkpoint
 
 
 def card_line() -> str:
@@ -156,7 +163,7 @@ def train_one(name: str, work: str, out: str, split_s: float,
         json.dump(report, fh, indent=2)
     with np.load(os.path.join(final, "arrays.npz")) as z:
         np.savez(os.path.join(dest, "g_ema.npz"),
-                 **{k: z[k] for k in z.files if k.startswith("g_ema/")},
+                 **{k: z[k] for k in z.files if k.startswith(_KEEP)},
                  step=z["step"])
     shutil.copy(os.path.join(final, "manifest.json"), dest)
     shutil.copy(os.path.join(run_dir, "metrics.jsonl"), dest)
@@ -188,12 +195,14 @@ def cmd_train(a) -> int:
 
 def _full_checkpoint(src: str, dest: str) -> str:
     """A full-state port checkpoint around ``src``'s EMA generator (the
-    generator is the EMA too; a fresh critic and optimizers)."""
+    generator is the EMA too; a fresh critic and optimizers; a curriculum
+    run's trained agents)."""
     import numpy as np
     import torch
-    from levelgan_torch.bridge import generator_params_from_flat
+    from levelgan_torch.api import save_state
+    from levelgan_torch.bridge import (agent_params_from_flat,
+                                       generator_params_from_flat)
     from levelgan_torch.config import Config
-    from levelgan_torch.lio.checkpoint import save_checkpoint
     from levelgan_torch.train.state import create_state
 
     with open(os.path.join(src, "manifest.json")) as fh:
@@ -205,11 +214,13 @@ def _full_checkpoint(src: str, dest: str) -> str:
     with torch.no_grad():
         for model in (state.generator, state.g_ema):
             model.load_state_dict(params)
+        for name in ("agent_strong", "agent_weak"):
+            if hasattr(state, name):
+                getattr(state, name).load_state_dict(
+                    agent_params_from_flat(flat, name))
     shutil.rmtree(dest, ignore_errors=True)
-    return save_checkpoint(os.path.join(dest, "ckpt"), state.generator, cfg,
-                           int(flat["step"]), critic=state.critic,
-                           g_ema=state.g_ema, opt_g=state.opt_g,
-                           opt_d=state.opt_d)
+    return save_state(os.path.join(dest, "ckpt"), state, cfg,
+                      int(flat["step"]), 0)
 
 
 def _gates(row: dict) -> dict:
@@ -279,6 +290,14 @@ def cmd_record(a) -> int:
                             if g["eval_cond_fit_rc"] is not None else {}),
                          **({"error": g["error"]} if "error" in g else {})},
             "jax": jax_row})
+    if os.path.exists(a.out):
+        # earlier calls' rows stay, in their order; a run recorded again
+        # replaces its row
+        with open(a.out) as fh:
+            old = json.load(fh)["rows"]
+        new = {r["run"]: r for r in rows}
+        rows = ([new.pop(r["run"], r) for r in old]
+                + [r for r in rows if r["run"] in new])
     doc = {"what": "whole training runs of the port on the card, gated by "
                    "the port's validate on the card and by the JAX "
                    "package's tools.gate_all on the CPU (default "
