@@ -32,7 +32,12 @@ Needs one CUDA card (exits non-zero without one, and without the
    dilations and ms a batch, the quality report and KL gate against the
    corpus; the conditioned export (conditional_32 through the CLI with
    ``--cond``, ``--calibrated`` and the corpus-mean default: K1 on every
-   stage, the kernel generator against the plain one with a cond);
+   stage, the kernel generator against the plain one with a cond); the
+   racetrack_32 export (65,536 tracks through the CLI at batch 1024, the
+   closure repair on the card: every track closed within CLOSURE_TOL and
+   inside the physical ranges, no kernel launched, an f32 batch on the
+   card against the CPU's), with tracks/s, a batch's CUDA-event span and
+   its D2H;
 5. a torch.profiler breakdown of one export batch (device time by kernel,
    the port's kernels and PyTorch's own, device idle share) and of a whole
    streamed ``generate()`` (kernels against wall, the D2H copies);
@@ -58,7 +63,8 @@ Needs one CUDA card (exits non-zero without one, and without the
    times (CUDA events around calls queued behind a spin kernel,
    ``queued_ms``) and bounds; and the gradient-penalty implementations
    (plain, K2 core, fused) timed whole;
-   then K2 core fwd / bwd on [64, 32768], [64, 8192] and [64, 2048] f32
+   then K2 core fwd / bwd on [64, 32768], [64, 8192], [64, 2048] and
+   [64, 64] (the track critic's g, 32 segments x 2) f32
    against their plain versions (forward twice, bit for bit; backward
    also with a stride-0 cotangent), each with the launch floor of
    ``queued_ms``, its L2-cold time and its plan, and the ATen operations
@@ -72,7 +78,9 @@ Needs one CUDA card (exits non-zero without one, and without the
    without ``--preset``) for its 100, conditional_32 (the conditional
    WGAN-GP step with the cond-match loss) for 10, curriculum_16 (the
    curriculum step, K2 core, the quality probe every 5 steps) for 10 and
-   curriculum_16_joint with the fused GP for 10, each with checked
+   curriculum_16_joint with the fused GP for 10, racetrack_32 and
+   race_curriculum_32 for 10 each on their whole track corpus, each with
+   checked
    metrics, checkpoint keys (the curriculum's agents, their Adams and the
    baseline too) and launch counters (and no call of the plain
    gn_act_bwd_folded on a CUDA tensor), then 1,024 levels exported from
@@ -86,12 +94,17 @@ Needs one CUDA card (exits non-zero without one, and without the
    curriculum_16 step through the kernels, through the plain path and
    through an f32 generator, from one state, batch and set of draws (the
    agents' action noise included): tiles, losses, generator gradients
-   and the agents' updates (``curriculum_vs_plain``);
+   and the agents' updates (``curriculum_vs_plain``); then one whole
+   racetrack_32 and one race_curriculum_32 step through the K2 core and
+   through the plain GP from one state, batch and set of draws
+   (``track_vs_plain``: losses, every critic update's and the generator's
+   gradients, the drivers' updates by cosine);
 9. the warm step time from a device-synchronised loop of the same step,
    and a torch.profiler breakdown of training steps (device time by kernel,
-   idle share, host time by op), for gumbel_64, wgan_gp_32 and
-   curriculum_16, the last with its two rollouts' host time and span and
-   one rollout's device operations;
+   idle share, host time by op), for gumbel_64, wgan_gp_32,
+   curriculum_16, racetrack_32 and race_curriculum_32, the curricula with
+   their two rollouts' host time and span and one rollout's device
+   operations (the first rollout under ``set_sync_debug_mode('error')``);
 10. reproducibility: a fresh process runs 3 seeded gumbel_64 steps through
     ``api.train`` three times, and its first run must equal its later ones
     in every array (``first_run_check``); then two such runs here, by
@@ -102,7 +115,8 @@ Needs one CUDA card (exits non-zero without one, and without the
     process bit for bit, so must a CLI run in a fresh process, and a CLI
     run sent SIGTERM after its first step (it must exit 0 with a
     checkpoint before step 3) and finished by ``--resume auto`` must equal
-    the uninterrupted CLI run;
+    the uninterrupted CLI run; then racetrack_32 for 3 steps three times in
+    a fresh process and twice here, every run equal to every other;
 11. print the ``kernels`` JSON line, the card line, and the final
     ``{"ok": true, "device": ...}`` line.
 
@@ -157,7 +171,14 @@ QUALITY = ("--set", f"io.quality_every={QUALITY_EVERY}", "--set",
 TRAIN_RUNS = (("gumbel_64", QUALITY, 10), ("wgan_gp_32", FUSED, 30),
               ("wgan_gp_32_structural", FUSED, 10), ("toy_dcgan_16", (), 100),
               ("conditional_32", (), 10), ("curriculum_16", QUALITY, 10),
-              ("curriculum_16_joint", FUSED, 10))
+              ("curriculum_16_joint", FUSED, 10), ("racetrack_32", (), 10),
+              ("race_curriculum_32", (), 10))
+TRACK_PRESETS = ("racetrack_32", "race_curriculum_32")
+N_TRACKS = 65536             # tracks of the racetrack_32 export
+CLOSURE_TOL = 1e-4           # | |sum kappa| - 2 pi | of a repaired track
+# a card batch of f32 tracks against the CPU's, same weights and z (TF32
+# off): max |diff| of the curvature
+TRACK_TOL = 1e-4
 REPRO_CORPUS = 64            # data.corpus_size of the repro phase's runs
 REPRO_STEPS = 3              # train.steps of each of the repro phase's runs
 # a sum over many bf16 products (dx, dgamma/dbeta): max |diff| / max |ref|
@@ -185,10 +206,21 @@ PER_STEP["curriculum_16"] = {"K1": 8, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
                              "K2 fused": 0}
 PER_STEP["curriculum_16_joint"] = {**PER_STEP["curriculum_16"],
                                    "K2 fused": 3}
+# the track family: no upsample stage and no fused GP; the critic's GP is
+# the K2 core over g [64, 32 * 2], once per critic iteration (n_critic 5 for
+# racetrack_32, 3 for race_curriculum_32); the GRU emitter, the 1-D conv
+# critic and the race sim are plain PyTorch ops
+PER_STEP["racetrack_32"] = {"K1": 0, "K1L": 0, "K1 bwd": 0, "K1L bwd": 0,
+                            "K2 core fwd": 5, "K2 core bwd": 5,
+                            "K2 fused": 0}
+PER_STEP["race_curriculum_32"] = {**PER_STEP["racetrack_32"],
+                                  "K2 core fwd": 3, "K2 core bwd": 3}
 # the curriculum's metrics besides d_loss, g_loss, gp, wdist
 CURRICULUM_KEYS = ("g_gan", "g_rl", "playability", "playability_weak",
                    "return_strong", "return_weak", "skill_gap",
                    "agent_entropy")
+TRACK_CURRICULUM_KEYS = ("g_gan", "g_rl", "drivability", "drivability_weak",
+                         "skill_gap", "crashes", "laps", "agent_entropy")
 # kernels vs plain curriculum step: the agents' parameter updates of the two
 # sides point the same way (cosine of the two updates), though the levels
 # they play differ where a bf16 rounding moves a tile's argmax
@@ -1299,7 +1331,7 @@ def train_kernel_parity(cfg, device, rows):
 # n_tiles] at gumbel_64, at wgan_gp_32 and at the 16x16 presets (not yet on
 # a ported path)
 K2_CORE_SHAPES = (("gumbel_64", 64 * 64 * 8), ("wgan_gp_32", 32 * 32 * 8),
-                  ("16x16", 16 * 16 * 8))
+                  ("16x16", 16 * 16 * 8), ("racetrack_32", 32 * 2))
 
 
 def k2_core_rows(device, rows):
@@ -1901,6 +1933,7 @@ def train_path(name, overrides, steps, workdir):
     from levelgan_torch.kernels import upsample_rows as k1l
 
     m = preset(name).model
+    track = m.family == "track"
     out = os.path.join(workdir, f"train_{name}")
     # the K1L backward's plain pass may run on CPU tensors only
     eager_gn, on_card = k1l.gn_act_bwd_folded, []
@@ -1914,11 +1947,12 @@ def train_path(name, overrides, steps, workdir):
     t0 = time.perf_counter()
     try:
         # toy_dcgan_16 is the CLI's default preset: run it without --preset
+        # the track corpus (4096 NumPy tracks, 1 MiB) is not cut
+        cut = () if track else ("--set", f"data.corpus_size={CORPUS_CUT}")
         rc = cli_train.main([*(("--preset", name) if name != "toy_dcgan_16"
                                else ()), *overrides, "--set",
                              f"train.steps={steps}", "--set",
-                             "io.log_every=10", "--set",
-                             f"data.corpus_size={CORPUS_CUT}", "--out", out])
+                             "io.log_every=10", *cut, "--out", out])
         torch.cuda.synchronize()
     finally:
         k1l.gn_act_bwd_folded = eager_gn
@@ -1951,8 +1985,8 @@ def train_path(name, overrides, steps, workdir):
                                   else ("gp", "wdist")), "kl", "step_ms"]
     cur = preset(name).curriculum
     if t.loss == "curriculum":
-        keys += CURRICULUM_KEYS
-        if cur.w_solvable or cur.gap_on_solvable:
+        keys += TRACK_CURRICULUM_KEYS if track else CURRICULUM_KEYS
+        if not track and (cur.w_solvable or cur.gap_on_solvable):
             keys.append("solvable_frac")
     if t.w_presence:
         keys.append("presence")
@@ -1998,6 +2032,10 @@ def train_path(name, overrides, steps, workdir):
     if cli_export.main(["--ckpt", ckpt, "--n", "1024", "--batch", "1024",
                         "--out", levels_path, "--seed", "0"]) != 0:
         fail("export from the trained checkpoint failed")
+    if track:
+        check_tracks(np.load(levels_path)["tracks"], 1024, m.n_segments,
+                     f"the {name} checkpoint's export")
+        return counts
     levels = np.load(levels_path)["levels"]
     if (levels.shape != (1024, m.level_size, m.level_size)
             or levels.dtype != np.uint8 or int(levels.max()) >= m.n_tiles):
@@ -2272,28 +2310,34 @@ def first_divergence(cfg, device) -> str:
                             "one step twice from one seed")
 
 
-def first_run_check() -> int:
-    """Run in a fresh process: three ``REPRO_STEPS``-step gumbel_64 runs
-    through ``api.train``; prints whether the process's first run equals
-    its second and its second its third, array by array, and returns how
-    many arrays of the first differ from the second."""
+def first_run_check(name: str = "gumbel_64", keep: str = "") -> int:
+    """Run in a fresh process: three ``REPRO_STEPS``-step runs of preset
+    ``name`` through ``api.train`` (a tile corpus cut to REPRO_CORPUS);
+    prints whether the process's first run equals its second and its second
+    its third, array by array, and returns how many arrays of the first
+    differ from the second.  ``keep``: an .npz path for the first run's
+    arrays."""
+    import numpy as np
     from levelgan_torch import api
     from levelgan_torch.config import preset
 
-    cfg = preset("gumbel_64").override(**{
-        "train.steps": REPRO_STEPS, "data.corpus_size": REPRO_CORPUS,
-        "io.log_every": 1})
+    cfg = preset(name).override(**{"train.steps": REPRO_STEPS,
+                                   "io.log_every": 1})
+    if cfg.model.family == "tile":
+        cfg = cfg.override(**{"data.corpus_size": REPRO_CORPUS})
     arrays = []
     with tempfile.TemporaryDirectory() as work:
         for run in (0, 1, 2):
             res = api.train(cfg.override(**{"io.out_dir": os.path.join(
                 work, str(run))}), device="cuda", echo=False)
             arrays.append(load_arrays(res["checkpoint"]))
+    if keep:
+        np.savez(keep, **arrays[0])
     first = []
     for a, b in ((0, 1), (1, 2)):
         diff = differing(arrays[a], arrays[b])
         first += diff if a == 0 else []
-        print(f"first-run check gumbel_64: the process's run {a + 1} against "
+        print(f"first-run check {name}: the process's run {a + 1} against "
               f"its run {b + 1} ({REPRO_STEPS} steps each): {len(diff)} of "
               f"{len(arrays[0])} arrays differ"
               + (f" ({diff[:4]})" if diff else ""), flush=True)
@@ -2315,20 +2359,28 @@ def fresh_vs_warm(steps: int = 3) -> None:
 
 
 def make_step(cfg):
-    """The train step of ``cfg``'s loss (WGAN-GP or the curriculum)."""
-    from levelgan_torch.train.curriculum import make_curriculum_step
-    from levelgan_torch.train.wgan_gp import make_wgan_gp_step
-    return (make_curriculum_step if cfg.train.loss == "curriculum"
-            else make_wgan_gp_step)(cfg)
+    """The train step of ``cfg``'s family and loss, as api.train makes it."""
+    from levelgan_torch.api import make_step_fn
+    return make_step_fn(cfg)
+
+
+def rollout_site(cfg):
+    """(module, name) of the rollout function a curriculum step calls."""
+    if cfg.model.family == "track":
+        from levelgan_torch.track import train as track_train
+        return track_train, "race_rollout"
+    from levelgan_torch.train import curriculum
+    return curriculum, "rollout"
 
 
 class RolloutClock:
-    """Wraps the curriculum step's ``rollout``: CUDA events and the host
-    clock around each call (no synchronisation), summed per step."""
+    """Wraps the curriculum step's rollout (the tile ``rollout``, the
+    track's ``race_rollout``): CUDA events and the host clock around each
+    call (no synchronisation), summed per step."""
 
-    def __init__(self):
-        from levelgan_torch.train import curriculum
-        self.mod, self.orig, self.calls = curriculum, curriculum.rollout, []
+    def __init__(self, cfg):
+        self.mod, self.name = rollout_site(cfg)
+        self.orig, self.calls = getattr(self.mod, self.name), []
 
     def __enter__(self):
         import torch
@@ -2342,11 +2394,11 @@ class RolloutClock:
             end.record()
             self.calls.append((start, end, time.perf_counter() - t0))
             return out
-        self.mod.rollout = timed
+        setattr(self.mod, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod.rollout = self.orig
+        setattr(self.mod, self.name, self.orig)
 
     def take(self):
         """(device ms, host ms) of the calls since the last take, after a
@@ -2374,13 +2426,17 @@ def warm_steps(cfg, device):
     m = cfg.model
     state = create_state(cfg, device)
     step_fn = make_step(cfg)
-    corpus = torch.randint(0, m.n_tiles, (CORPUS_CUT, m.level_size,
-                                          m.level_size), dtype=torch.uint8,
-                           device=device,
-                           generator=torch.Generator(device).manual_seed(9))
+    if m.family == "track":
+        from levelgan_torch.api import make_dataset
+        corpus = torch.from_numpy(make_dataset(cfg).tracks).to(device)
+    else:
+        corpus = torch.randint(
+            0, m.n_tiles, (CORPUS_CUT, m.level_size, m.level_size),
+            dtype=torch.uint8, device=device,
+            generator=torch.Generator(device).manual_seed(9))
     torch.cuda.reset_peak_memory_stats()
     times, roll = [], []
-    with RolloutClock() as clock, step_mode():
+    with RolloutClock(cfg) as clock, step_mode():
         for i in range(WARM_STEPS):
             rng = step_generator(cfg, i, device)
             torch.cuda.synchronize()
@@ -2570,24 +2626,35 @@ def rollout_ops(state, cfg, corpus):
     that synchronises the host with the device fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from levelgan_torch.data.codec import encode
-    from levelgan_torch.env.sim import rollout
-    from levelgan_torch.train.curriculum import env_params
 
-    ids = corpus[:cfg.train.batch_size]
-    onehot = encode(ids, cfg.model.n_tiles)
     g = torch.Generator(corpus.device).manual_seed(5)
+    data = corpus[:cfg.train.batch_size]
+    if cfg.model.family == "track":
+        from levelgan_torch.track.race import race_rollout
+        from levelgan_torch.track.train import race_params
+
+        def run():
+            race_rollout(state.agent_strong, data, race_params(cfg),
+                         generator=g)
+    else:
+        from levelgan_torch.data.codec import encode
+        from levelgan_torch.env.sim import rollout
+        from levelgan_torch.train.curriculum import env_params
+        onehot = encode(data, cfg.model.n_tiles)
+
+        def run():
+            rollout(state.agent_strong, data, onehot, env_params(cfg),
+                    generator=g)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        rollout(state.agent_strong, ids, onehot, env_params(cfg),
-                generator=g)
+        run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(state.agent_strong, ids, onehot, env_params(cfg), generator=g)
+        run()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = device_rows(prof)
@@ -2716,6 +2783,247 @@ def curriculum_vs_plain(cfg, device):
             or any(a > BF16_RATIO * b + BF16_SLACK for a, b, _ in g_err)):
         fail("the curriculum step through the kernels disagrees with the "
              "plain path")
+
+
+def check_tracks(tracks, n: int, segments: int, what: str) -> None:
+    """Fail unless ``tracks`` are ``n`` finite f32 [segments, 2] tracks
+    whose heading closes (| |sum kappa| - 2 pi | <= CLOSURE_TOL, as the
+    export's closure repair makes it) and whose |kappa| stays within
+    KAPPA_MAX (compared in f32, as the clip leaves it)."""
+    import numpy as np
+    from levelgan_torch.track.data import KAPPA_MAX, WIDTH_MAX, WIDTH_MIN
+    if (tracks.shape != (n, segments, 2) or tracks.dtype != np.float32
+            or not np.isfinite(tracks).all()):
+        fail(f"{what}: {tracks.dtype} {tracks.shape}, finite "
+             f"{bool(np.isfinite(tracks).all())}")
+    kappa = tracks[..., 0]
+    closure = np.abs(np.abs(kappa.astype(np.float64).sum(-1)) - 2 * np.pi)
+    width = tracks[..., 1]
+    print(f"  {what}: {n} tracks, closure error max {closure.max():.3g} rad "
+          f"(tol {CLOSURE_TOL}), |kappa| max {np.abs(kappa).max():.6g} "
+          f"(bound {KAPPA_MAX}), width in [{width.min():.4g}, "
+          f"{width.max():.4g}]")
+    if (closure.max() > CLOSURE_TOL
+            or np.abs(kappa).max() > np.float32(KAPPA_MAX)
+            or width.min() < np.float32(WIDTH_MIN)
+            or width.max() > np.float32(WIDTH_MAX)):
+        fail(f"{what}: a track is not closed or leaves the physical ranges")
+
+
+def track_export(device, workdir, n=N_TRACKS, batch=B):
+    """The racetrack_32 export: a generator with seeded random weights
+    written as a FORMAT.md checkpoint and exported through the port's CLI
+    (``n`` tracks at ``batch``, repair on by the config's 'auto': the
+    closure projection on the card); every track must close and stay in
+    range, no kernel of the port may launch (the GRU is plain PyTorch), a
+    card batch in f32 must equal the CPU's within TRACK_TOL; then the warm
+    export's tracks/s, one batch's device time (``queued_ms``: its ~450
+    launches queued behind a spin), its span between CUDA events (the
+    host's launches included) and its D2H into pinned memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from levelgan_torch.cli import export as cli_export
+    from levelgan_torch.config import preset
+    from levelgan_torch.export import (generate, generate_tracks_batch,
+                                       make_generator)
+    from levelgan_torch.lio.checkpoint import save_checkpoint
+    from levelgan_torch.track.models import TrackGenerator
+
+    cfg = preset("racetrack_32")
+    m = cfg.model
+    gen = TrackGenerator(m).init_params(torch.Generator().manual_seed(5))
+    ckpt = save_checkpoint(os.path.join(workdir, "track_ckpt"), gen, cfg)
+    out = os.path.join(workdir, "tracks.npz")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_export.main(["--ckpt", ckpt, "--n", str(n), "--batch",
+                          str(batch), "--out", out, "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        fail(f"track export CLI returned {rc}")
+    if any(counts.values()):
+        fail(f"the track export launched kernels of the port: {counts}")
+    tracks = np.load(out)["tracks"]
+    print(f"  exported {n} tracks through the CLI in {wall:.3f} s (wall, "
+          f"incl. checkpoint load, first call and the compressed .npz)")
+    check_tracks(tracks, n, m.n_segments, "racetrack_32 export")
+    # the card against the CPU, f32 on both sides, same weights and z
+    m32 = dataclasses.replace(m, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, model=m32)
+    z = torch.randn((batch, m.latent_dim),
+                    generator=torch.Generator().manual_seed(6))
+    card = generate_tracks_batch(make_generator(cfg32, gen.state_dict(),
+                                                device), z.to(device),
+                                 repair=True).cpu()
+    host = generate_tracks_batch(make_generator(cfg32, gen.state_dict(),
+                                                "cpu"), z, repair=True)
+    err = float((card - host).abs().max())
+    print(f"  f32 batch of {batch}, card vs CPU: max |diff| {err:.3g} (tol "
+          f"{TRACK_TOL})")
+    if err > TRACK_TOL:
+        fail("the card's track batch disagrees with the CPU's")
+    g = make_generator(cfg, gen.state_dict(), device)
+    zd = torch.randn((batch, m.latent_dim), device=device)
+    def one_batch():
+        return generate_tracks_batch(g, zd, repair=True)
+    dev_ms = queued_ms(one_batch, n=5)
+    span_ms = median_ms(one_batch)
+    one = one_batch()
+    pinned = torch.empty(one.shape, dtype=one.dtype, pin_memory=True)
+    d2h_ms = median_ms(lambda: pinned.copy_(one, non_blocking=True))
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(cfg, g, n, batch_size=batch, device=device)
+        walls.append(time.perf_counter() - t0)
+    print(f"  warm export of {n} tracks (generate, batch {batch}): "
+          f"{n / min(walls):,.0f} tracks/s (best of {len(walls)}: "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s); one batch "
+          f"{dev_ms:.4f} ms of device time (queued_ms) and {span_ms:.4f} ms "
+          f"between CUDA events (the GRU's 32 steps and the closure, the "
+          f"host's launches included), D2H of its "
+          f"{one.numel() * 4 / 2 ** 10:.0f} KiB {d2h_ms:.4f} ms")
+
+
+def track_vs_plain(cfg, device):
+    """Phase 8 for the track family: one whole step of ``cfg`` (racetrack_32
+    or race_curriculum_32) through the K2 core ('auto') and through the
+    plain GP ('xla'), from one seeded state (drivers included), batch and
+    set of draws.  Both sides run the same plain critic and GRU, so they
+    differ only in the GP's norm core: the losses are held within
+    LOSS_TOL, every critic iteration's gradients and the generator's
+    within GRAD_TOL (max |diff| / max |ref|), the drivers' updates by
+    cosine (AGENT_COS: the raced tracks agree to the last bits, and an
+    action whose argmax sits at a near-tie may flip); the kernel side must
+    launch PER_STEP's K2 core counts, the plain side none."""
+    import copy
+
+    import torch
+    from levelgan_torch.api import make_dataset, make_step_fn, step_mode
+    from levelgan_torch.track.train import draw_track_noise
+    from levelgan_torch.train.state import create_state
+
+    t = cfg.train
+    curriculum = t.loss == "curriculum"
+    plain_cfg = cfg.override(**{"model.pallas_gp": "xla"})
+    base = create_state(cfg, device, seed=11)
+    corpus = torch.from_numpy(make_dataset(cfg).tracks).to(device)
+    g = torch.Generator(device).manual_seed(12)
+    batch = corpus[torch.randint(0, corpus.shape[0], (t.n_critic, B_TRAIN),
+                                 device=device, generator=g)]
+    noise = draw_track_noise(cfg, t.n_critic, B_TRAIN, device, g)
+    drivers = ("agent_strong", "agent_weak") if curriculum else ()
+    res = {}
+    for side, step_cfg in (("kernels", cfg), ("plain", plain_cfg)):
+        state = create_state(
+            cfg, device, generator=copy.deepcopy(base.generator),
+            critic=copy.deepcopy(base.critic),
+            agents=tuple(copy.deepcopy(getattr(base, a)) for a in drivers)
+            or None)
+        grads = {"G": [], "D": []}
+        for key, opt in (("G", state.opt_g), ("D", state.opt_d)):
+            def caught(closure=None, _opt=opt, _key=key, _step=opt.step):
+                grads[_key].append([p.grad.detach().clone()
+                                    for grp in _opt.param_groups
+                                    for p in grp["params"]])
+                return _step(closure)
+            opt.step = caught
+        before = read_counts()
+        with step_mode():
+            _, met = make_step_fn(step_cfg)(state, batch, noise=noise)
+        torch.cuda.synchronize()
+        after = read_counts()
+        res[side] = {
+            "met": {k: float(v) for k, v in met.items() if k != "gen_hist"},
+            "grads": grads,
+            "launches": {k: after[k] - before[k] for k in after},
+            "drivers": [torch.cat([(p - q).detach().flatten() for p, q in zip(
+                getattr(state, a).parameters(),
+                getattr(base, a).parameters())]) for a in drivers]}
+    k, p = res["kernels"], res["plain"]
+    names = ["d_loss", "gp", "g_loss"] + (["g_gan", "g_rl"] if curriculum
+                                          else [])
+    loss_err = max(abs(k["met"][n] - p["met"][n]) / max(abs(p["met"][n]),
+                                                        0.1) for n in names)
+    d_err = max(rel_err(a, b) for ka, pa in zip(k["grads"]["D"],
+                                                p["grads"]["D"])
+                for a, b in zip(ka, pa))
+    g_err = max(rel_err(a, b) for a, b in zip(k["grads"]["G"][0],
+                                              p["grads"]["G"][0]))
+    cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+           for a, b in zip(k["drivers"], p["drivers"])]
+    print("  metrics kernels / plain: " + "; ".join(
+        f"{n} {k['met'][n]:.6g} / {p['met'][n]:.6g}"
+        for n in names + (["drivability", "skill_gap", "agent_entropy"]
+                          if curriculum else [])))
+    print(f"  loss err {loss_err:.3g} (tol {LOSS_TOL}); the critic's "
+          f"{len(k['grads']['D'])} updates' gradients max rel err "
+          f"{d_err:.3g}, the generator's {g_err:.3g} (tol {GRAD_TOL})"
+          + (f"; the drivers' updates, cosine kernels vs plain: strong "
+             f"{cos[0]:.5f}, weak {cos[1]:.5f} (tol {AGENT_COS})"
+             if curriculum else "") + f"; launches {k['launches']}")
+    if k["launches"] != PER_STEP[cfg.preset] or any(
+            p["launches"].values()):
+        fail(f"kernel side launched {k['launches']} (want "
+             f"{PER_STEP[cfg.preset]}), plain side {p['launches']}")
+    if (loss_err > LOSS_TOL or d_err > GRAD_TOL or g_err > GRAD_TOL
+            or (cos and min(cos) < AGENT_COS)):
+        fail(f"the {cfg.preset} step through the K2 core disagrees with the "
+             "plain GP")
+
+
+def track_repro(device, workdir, steps=REPRO_STEPS):
+    """racetrack_32, ``steps`` seeded steps through ``api.train``: a fresh
+    process runs them three times (``first_run_check``: its first run must
+    equal its later ones) and keeps its first run's arrays; two more runs
+    here, under torch's own TF32 settings as the CLI; every run must equal
+    every other in every array (fatal).  Catches a GRU or conv backward
+    whose summation order depends on its thread or its process."""
+    import torch
+    from levelgan_torch import api
+    from levelgan_torch.config import preset
+
+    kept = os.path.join(workdir, "track_first_run.npz")
+    fresh = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(min(1, "
+         f"chip_smoke.first_run_check('racetrack_32', {kept!r})))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    for line in fresh.stdout.strip().splitlines():
+        print("  " + line)
+    if fresh.returncode != 0:
+        fail("racetrack_32: the first training run of a fresh process "
+             f"differs from its later runs: {fresh.stdout[-800:]}"
+             f"{fresh.stderr[-2000:]}")
+    import numpy as np
+    with np.load(kept) as z:
+        runs = [{k: z[k] for k in z.files}]
+    cfg = preset("racetrack_32").override(**{"train.steps": steps,
+                                             "io.log_every": 1})
+    backends = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = [b.allow_tf32 for b in backends]
+    for b, on in zip(backends, TORCH_TF32 or saved):
+        b.allow_tf32 = on
+    try:
+        for run in (0, 1):
+            res = api.train(cfg.override(**{"io.out_dir": os.path.join(
+                workdir, f"track_repro_{run}")}), device=device, echo=False)
+            runs.append(load_arrays(res["checkpoint"]))
+    finally:
+        for b, on in zip(backends, saved):
+            b.allow_tf32 = on
+    for a, b in ((0, 1), (1, 2), (0, 2)):
+        diff = differing(runs[a], runs[b])
+        print(f"  racetrack_32 {steps}-step runs {a} / {b} (0 = the fresh "
+              f"process's first): {len(diff)} of {len(runs[a])} arrays "
+              "differ" + (f" ({diff[:4]})" if diff else ""))
+        if diff:
+            fail("racetrack_32 training is not bit-reproducible")
 
 
 def kernels_line(records, counts, train_records, train_counts):
@@ -2875,6 +3183,9 @@ def main(argv=()) -> int:
         if phase("export"):
             print("export path: gumbel_64 export through the port's CLI")
             counts = main_path(cfg, device, workdir)
+            print(f"track export: racetrack_32 through the port's CLI, "
+                  f"{N_TRACKS} tracks, closure repair on")
+            track_export(device, workdir)
         if phase("export_repair"):
             print("repaired export: gumbel_64 through the CLI with --repair "
                   "--exactly-one under both placements")
@@ -2907,8 +3218,11 @@ def main(argv=()) -> int:
                 print(f"training path: levelgan_torch.cli.train "
                       f"{'--preset ' + name if name != 'toy_dcgan_16' else ''}"
                       f" {' '.join(overrides)}, {steps} steps "
-                      f"(data.corpus_size cut to {CORPUS_CUT}: the preset's "
-                      "4096 levels take minutes of host NumPy carving)")
+                      + ("(the whole 4096-track corpus)"
+                         if name in TRACK_PRESETS else
+                         f"(data.corpus_size cut to {CORPUS_CUT}: the "
+                         "preset's 4096 levels take minutes of host NumPy "
+                         "carving)"))
                 train_counts[name] = train_path(name, overrides, steps,
                                                 workdir)
         if phase("train_check"):
@@ -2919,8 +3233,11 @@ def main(argv=()) -> int:
             print("a curriculum step through the kernels vs the plain path "
                   "(curriculum_16, K2 core):")
             curriculum_vs_plain(cfg16, device)
+            for name in TRACK_PRESETS:
+                print(f"a {name} step through the K2 core vs the plain GP:")
+                track_vs_plain(preset(name), device)
         if phase("train_profile"):
-            for c in (cfg, cfg32, cfg16):
+            for c in (cfg, cfg32, cfg16, *map(preset, TRACK_PRESETS)):
                 print(f"warm steps and profile: {c.preset} training, "
                       f"pallas_gp={c.model.pallas_gp}")
                 state, step_fn, corpus = warm_steps(c, device)
@@ -2929,6 +3246,9 @@ def main(argv=()) -> int:
             print("reproducibility: gumbel_64 trained twice from one seed, "
                   "then resumed and stopped by SIGTERM")
             reproducibility(device, workdir)
+            print("reproducibility: racetrack_32 trained in a fresh process "
+                  "and here from one seed")
+            track_repro(device, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[{time.perf_counter() - t_start:7.1f} s] phases done")

@@ -1,22 +1,27 @@
 """Public API: ``train(cfg)``, the training entry point.
 
-Port of ``levelgan/api.py:train`` for the tile family's presets
+Port of ``levelgan/api.py:train`` for all nine presets.  Tile family
 (``toy_dcgan_16``, ``wgan_gp_32``, ``wgan_gp_32_structural``,
 ``gumbel_64``, ``conditional_32``, ``curriculum_16``,
-``curriculum_16_joint``).  ``train.loss='gan'`` runs the BCE step
+``curriculum_16_joint``): ``train.loss='gan'`` runs the BCE step
 (``train/gan.py``) on batches [B, H, W], ``'wgan_gp'`` the WGAN-GP step
 and ``'curriculum'`` the agent-in-the-loop step (``train/curriculum.py``)
-on [n_critic, B, H, W].  The corpus is built on the host once and
-staged on the device; each step's batch indices are drawn on the device
-from a ``torch.Generator`` seeded by (``train.seed``, step), and the same
-generator then draws the step's noise, so a step's randomness depends on
-nothing but the seed and the step, and a resumed run consumes exactly the
-batches and draws an uninterrupted one would.  Metrics go to
+on [n_critic, B, H, W].  Track family (``racetrack_32``,
+``race_curriculum_32``): ``'wgan_gp'`` and ``'curriculum'`` run the track
+steps (``track/train.py``) on f32 tracks [n_critic, B, T, 2]; ``'gan'``
+raises, as in the JAX package, and the window's ``kl`` is the curvature
+histogram's (``TrackDataset.N_BINS`` bins).  The corpus is built on the
+host once and staged on the device; each step's batch indices are drawn
+on the device from a ``torch.Generator`` seeded by (``train.seed``,
+step), and the same generator then draws the step's noise, so a step's
+randomness depends on nothing but the seed and the step, and a resumed
+run consumes exactly the batches and draws an uninterrupted one would.  Metrics go to
 ``metrics.jsonl`` (appended to) every ``io.log_every`` steps (with the
 window's tile-histogram ``kl`` against the corpus and ``step_ms``),
 checkpoints every ``io.ckpt_every`` steps and at the end, with the whole
 state (the optimizers in optax's layout), so that the JAX package can load
-them.  Every ``io.quality_every`` steps a quality probe samples
+them.  Every ``io.quality_every`` steps (tile family; the track's probe is
+disabled with the JAX package's message) a quality probe samples
 ``io.quality_n`` levels from the EMA generator and logs ``solvable_frac``,
 ``has_start_frac`` and ``has_goal_frac`` (the flood fill on the device;
 three floats cross to the host); with ``io.keep_best`` the state of the
@@ -46,9 +51,8 @@ and is ignored, as are ``io.compile_cache`` (XLA's cache) and
 
 Not in this slice, each raising ``NotImplementedError`` rather than being
 skipped: ``io.render_every`` (PNG renders), ``io.profile``,
-``io.tensorboard``, data parallelism (``dist.dp > 1``,
-``dist.coordinator_address``, ``dist.num_processes > 1``) and the track
-family.
+``io.tensorboard`` and data parallelism (``dist.dp > 1``,
+``dist.coordinator_address``, ``dist.num_processes > 1``).
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ from levelgan_torch.lio.checkpoint import (all_checkpoints, load_checkpoint,
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
 from levelgan_torch.lio.quality import playability
 from levelgan_torch.models import sample_head
+from levelgan_torch.track.data import TrackDataset
+from levelgan_torch.track.train import (make_track_curriculum_step,
+                                        make_track_wgan_step)
 from levelgan_torch.train.curriculum import make_curriculum_step
 from levelgan_torch.train.gan import corpus_cond_scale, make_gan_step
 from levelgan_torch.train.state import create_state
@@ -81,6 +88,8 @@ _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 _PROBE_TAG = 0x9B0BE         # the quality probe's stream
 _STEPS = {"gan": make_gan_step, "wgan_gp": make_wgan_gp_step,
           "curriculum": make_curriculum_step}
+_TRACK_STEPS = {"wgan_gp": make_track_wgan_step,
+                "curriculum": make_track_curriculum_step}
 
 
 def _not_ported(cfg: Config) -> None:
@@ -95,13 +104,28 @@ def _not_ported(cfg: Config) -> None:
                                 "training (dist/mesh.py)"),
         (d.num_processes > 1, f"dist.num_processes={d.num_processes}: "
                               "multi-process training (dist/mesh.py)"),
-        (m.family != "tile", "the track family (track/)"),
     ]
     for on, why in later:
         if on:
             raise NotImplementedError(f"not ported yet: {why}")
+    if m.family == "track" and t.loss not in _TRACK_STEPS:
+        raise ValueError(f"track family supports wgan_gp/curriculum, "
+                         f"not '{t.loss}'")
     if t.loss not in _STEPS:
         raise ValueError(f"unknown loss '{t.loss}'")
+
+
+def make_step_fn(cfg: Config, cond_scale=None):
+    """The train step of ``cfg``'s family and loss."""
+    steps = _TRACK_STEPS if cfg.model.family == "track" else _STEPS
+    return steps[cfg.train.loss](cfg, cond_scale=cond_scale)
+
+
+def make_dataset(cfg: Config):
+    """The corpus of ``cfg``'s family (tile levels or tracks), carved on the
+    host."""
+    kind = TrackDataset if cfg.model.family == "track" else LevelDataset
+    return kind.from_config(cfg.data, cfg.model, seed=cfg.train.seed)
 
 
 @contextlib.contextmanager
@@ -155,8 +179,9 @@ def make_quality_probe(cfg: Config, n: int):
 
 def sample_batch(corpus: torch.Tensor, cfg: Config,
                  generator: torch.Generator) -> torch.Tensor:
-    """Device-side batch ids from the staged corpus: [n_critic, B, H, W]
-    for WGAN-GP and the curriculum, [B, H, W] for the BCE GAN."""
+    """Device-side batch from the staged corpus: [n_critic, B, H, W] ids
+    (or [n_critic, B, T, 2] tracks) for WGAN-GP and the curriculum,
+    [B, H, W] for the BCE GAN."""
     t = cfg.train
     shape = ((t.batch_size,) if t.loss == "gan"
              else (t.n_critic, t.batch_size))
@@ -250,15 +275,24 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     ``io.keep_best``)."""
     _not_ported(cfg)
     dev = resolve_device(device)
-    ds = LevelDataset.from_config(cfg.data, cfg.model, seed=cfg.train.seed)
-    cond_scale = (corpus_cond_scale(cfg, ds.levels) if cfg.train.w_cond_match
-                  else None)
-    step_fn = _STEPS[cfg.train.loss](cfg, cond_scale=cond_scale)
-    ref_hist = ds.tile_histogram(cfg.model.n_tiles)
-    corpus = torch.from_numpy(ds.levels).to(dev)
+    ds = make_dataset(cfg)
+    track = cfg.model.family == "track"
+    cond_scale = (corpus_cond_scale(cfg, ds.levels)
+                  if cfg.train.w_cond_match and not track else None)
+    step_fn = make_step_fn(cfg, cond_scale)
+    # the window's kl: curvature bins for tracks, tile counts for levels
+    ref_hist = (ds.tile_histogram() if track
+                else ds.tile_histogram(cfg.model.n_tiles))
+    corpus = torch.from_numpy(ds.tracks if track else ds.levels).to(dev)
     ckpt_dir = os.path.join(cfg.io.out_dir, "ckpt")
     state = resume(cfg, create_state(cfg, dev), ckpt_dir, echo)
     io, steps = cfg.io, cfg.train.steps
+    quality_every = io.quality_every
+    if quality_every and track:
+        if echo:
+            print("[levelgan_torch] io.quality_every is tile-family only "
+                  "(track quality = curvature gate); probe disabled")
+        quality_every = 0
 
     def crossed(every: int, prev: int, cur: int) -> bool:
         return bool(every) and cur // every > prev // every
@@ -271,13 +305,13 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
               f"device={dev} G params={n_g:,} D params={n_d:,} "
               f"start step={state.step}", flush=True)
     quality_probe = (make_quality_probe(cfg, io.quality_n)
-                     if io.quality_every else None)
+                     if quality_every else None)
     # conditional probes ask for 0.25 in every feature, as the JAX package's
     probe_cond = (torch.full((io.quality_n, cfg.model.cond_dim), 0.25,
                              device=dev)
-                  if io.quality_every and cfg.model.cond_dim else None)
+                  if quality_every and cfg.model.cond_dim else None)
     best_solvable, best = -1.0, None
-    gen_hist = torch.zeros(cfg.model.n_tiles, device=dev)
+    gen_hist = torch.zeros(len(ref_hist), device=dev)
     kl, last_metrics = float("nan"), {}
     start = state.step
     t_last, last_i = time.monotonic(), start
@@ -301,7 +335,7 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
                     i + 1, **metrics, kl=kl,
                     step_ms=1e3 * (now - t_last) / (i + 1 - last_i))
                 t_last, last_i = now, i + 1
-            if crossed(io.quality_every, i, i + 1):
+            if crossed(quality_every, i, i + 1):
                 q = {k: float(v) for k, v in quality_probe(
                     state.g_ema, _seeded(dev, cfg.train.seed, _PROBE_TAG,
                                          i + 1), probe_cond).items()}

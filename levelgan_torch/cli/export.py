@@ -1,14 +1,16 @@
 """Level export CLI: ``python -m levelgan_torch.cli.export``.
 
-Port of ``levelgan/cli/export.py`` for tile models: loads a FORMAT.md
-checkpoint written by either package (EMA generator weights first),
-generates on the GPU (``--device cpu`` for the plain CPU path), and writes
-``.npz`` (uint8 ``levels``), ``.txt`` (ascii) or ``.png``.  Prints
-levels/sec.  ``--repair`` / ``--repair-placement`` / ``--exactly-one``
-repair START and GOAL on the device; a conditional model takes ``--cond``
-(default: the corpus-mean feature vector) and ``--calibrated`` maps it
-through the checkpoint's ``cond_calibration.json``.  Track checkpoints
-raise ``NotImplementedError``.
+Port of ``levelgan/cli/export.py``: loads a FORMAT.md checkpoint written
+by either package (EMA generator weights first), generates on the GPU
+(``--device cpu`` for the plain CPU path), and writes ``.npz`` (uint8
+``levels``), ``.txt`` (ascii) or ``.png``.  Prints levels/sec.
+``--repair`` / ``--repair-placement`` / ``--exactly-one`` repair START and
+GOAL on the device; a conditional model takes ``--cond`` (default: the
+corpus-mean feature vector) and ``--calibrated`` maps it through the
+checkpoint's ``cond_calibration.json``.  Track checkpoints write ``.npz``
+(f32 ``tracks`` [n, T, 2]) or ``.png`` (centerline plots,
+``track/render.py``); their repair (on by default, ``--no-repair`` off)
+is the heading-closure projection.
 """
 
 from __future__ import annotations
@@ -20,13 +22,14 @@ import time
 
 import numpy as np
 
+from levelgan_torch.api import make_dataset
 from levelgan_torch.config import Config
-from levelgan_torch.data.dataset import LevelDataset
 from levelgan_torch.data.features import corpus_mean_cond
 from levelgan_torch.device import resolve_device
 from levelgan_torch.export import generate
 from levelgan_torch.lio.calibration import apply_calibration, load_calibration
 from levelgan_torch.lio.checkpoint import all_checkpoints, load_generator_params
+from levelgan_torch.track.render import write_track_png
 
 ASCII_TILES = ".#SGXo~*"
 # RGB palette per tile id (empty, wall, start, goal, hazard, coin, sand, ice)
@@ -118,9 +121,11 @@ def main(argv=None):
     ap.add_argument("--repair", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="place missing START/GOAL tiles, GOAL inside "
-                         "START's reachable component (ops/repair.py). "
-                         "Default: cfg.io.export_repair ('auto' = off for "
-                         "tiles); --no-repair exports the raw sample.")
+                         "START's reachable component (ops/repair.py); "
+                         "tracks: the exact heading-closure projection "
+                         "(track/ops.py). Default: cfg.io.export_repair "
+                         "('auto' = off for tiles, on for tracks); "
+                         "--no-repair exports the raw sample.")
     ap.add_argument("--exactly-one", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="with repair: also demote duplicate START/GOAL "
@@ -134,9 +139,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg, params = load_generator(args.ckpt)
-    if cfg.model.family != "tile":
-        raise NotImplementedError(
-            "track-family export is not ported yet (the track slice)")
+    track = cfg.model.family == "track"
+    if track and not args.out.endswith((".npz", ".png")):
+        raise SystemExit("track export supports .npz or .png")
     cond = None
     if args.cond is not None:
         cond = np.array([float(x) for x in args.cond.split(",")], np.float32)
@@ -145,9 +150,7 @@ def main(argv=None):
                              f"got {cond.size}")
     elif cfg.model.cond_dim:
         # default request: the whole corpus's mean feature vector
-        ds = LevelDataset.from_config(cfg.data, cfg.model,
-                                      seed=cfg.train.seed)
-        cond = corpus_mean_cond(cfg, ds, device)
+        cond = corpus_mean_cond(cfg, make_dataset(cfg), device)
     if args.calibrated:
         if cond is None:
             raise SystemExit("--calibrated requires a conditional model")
@@ -161,16 +164,19 @@ def main(argv=None):
     dt = time.perf_counter() - t0
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    what = "tracks" if track else "levels"
     if args.out.endswith(".npz"):
-        np.savez_compressed(args.out, levels=levels)
+        np.savez_compressed(args.out, **{what: levels})
+    elif track:
+        write_track_png(args.out, levels)
     elif args.out.endswith(".txt"):
         write_txt(args.out, levels)
     elif args.out.endswith(".png"):
         write_png(args.out, levels)
     else:
         raise SystemExit("--out must end in .npz, .txt, or .png")
-    print(f"[levelgan_torch] exported {len(levels)} levels to {args.out} "
-          f"({len(levels) / dt:,.0f} levels/sec on {device}, incl. kernel "
+    print(f"[levelgan_torch] exported {len(levels)} {what} to {args.out} "
+          f"({len(levels) / dt:,.0f} {what}/sec on {device}, incl. kernel "
           f"build and first-call setup)")
     return 0
 

@@ -30,7 +30,7 @@ def parse_overrides(pairs: list[str]) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="levelgan-torch-train",
-        description="Train a tile-level GAN (PyTorch port).")
+        description="Train a level or track GAN (PyTorch port).")
     ap.add_argument("--preset", choices=PRESET_NAMES, default=None,
                     help="named config preset")
     ap.add_argument("--config", default=None, help="YAML/JSON config file")

@@ -21,6 +21,7 @@ import torch
 
 from levelgan_torch.config import COIN, GOAL, HAZARD, START, WALL
 from levelgan_torch.device import resolve_device
+from levelgan_torch.track.ops import track_features
 
 FEATURE_NAMES = ("wall_frac", "hazard_frac", "coin_frac", "goal_dist")
 N_FEATURES = 4
@@ -97,11 +98,12 @@ def batched_features(feature_fn, data: np.ndarray, batch: int = 4096,
 
 def corpus_mean_cond(cfg, ds, device=None) -> np.ndarray:
     """The whole corpus's mean feature vector: the default export
-    condition of a conditional model."""
+    condition of a conditional model (``level_features`` over the tile
+    corpus, ``track.ops.track_features`` over a track corpus)."""
     if cfg.model.family == "track":
-        raise NotImplementedError(
-            "track features (track/ops.track_features) are not ported yet "
-            "(the track slice)")
-    feats = batched_features(level_features, np.asarray(ds.levels),
-                             device=device)
+        feats = batched_features(track_features, np.asarray(ds.tracks),
+                                 device=device)
+    else:
+        feats = batched_features(level_features, np.asarray(ds.levels),
+                                 device=device)
     return feats.mean(axis=0)

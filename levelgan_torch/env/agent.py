@@ -28,6 +28,15 @@ from levelgan_torch.env.sim import N_ACTIONS, Trajectory, make_obs
 from levelgan_torch.models.generator import Dense
 
 
+def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled to variance 1 / fan_in (fan_in = all but the last
+    dimension)."""
+    w = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+    return w * (math.sqrt(1.0 / math.prod(shape[:-1])) / .87962566103423978)
+
+
 def _half(n: int) -> int:
     """The output size of a SAME stride-2 conv over ``n`` pixels."""
     return -(-n // 2)
@@ -77,11 +86,7 @@ class AgentPolicy(nn.Module):
             if name.startswith(("Dense_1", "Dense_2")):
                 w = torch.randn(p.shape, generator=generator) * 0.01
             else:
-                fan_in = math.prod(p.shape[:-1])
-                w = torch.nn.init.trunc_normal_(
-                    torch.empty(p.shape), 0.0, 1.0, -2.0, 2.0,
-                    generator=generator)
-                w *= math.sqrt(1.0 / fan_in) / .87962566103423978
+                w = lecun_normal(tuple(p.shape), generator)
             p.copy_(w)
         return self
 

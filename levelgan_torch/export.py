@@ -1,7 +1,10 @@
 """Level export: z -> G -> sample head -> decode -> repair -> pack.
 
-Port of ``levelgan/export.py`` for the tile family.  Everything up to the
-uint8 ids (or their bit planes, ``pack=True``) runs on the device.  The
+Port of ``levelgan/export.py``.  Tile family: everything up to the uint8
+ids (or their bit planes, ``pack=True``) runs on the device.  Track
+family: z -> ``TrackGenerator`` -> (repair: the exact heading-closure
+projection ``track.ops.closure_project``, on by the config's ``'auto'``)
+-> f32 tracks [n, T, 2]; packing is refused.  The
 host side is streamed as in the JAX package: each batch's D2H is issued
 without blocking into pinned buffers, and the host unpacks (natively,
 ``native/unpack.c``) or copies batch i into one preallocated [n, H, W]
@@ -12,8 +15,6 @@ draws each batch's z and then its Gumbel noise; the repair's uniform
 placement draws from a second one (``repair_generator``).  ``generate``
 also takes injected ``z``, ``noise`` and ``repair_scores`` (the tests feed
 it the JAX package's draws).
-
-Not in this slice: the track family (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from levelgan_torch.device import resolve_device
 from levelgan_torch.models import Generator, sample_head
 from levelgan_torch.native.build import unpack_planes
 from levelgan_torch.ops.repair import ensure_start_goal
+from levelgan_torch.track.models import TrackGenerator
+from levelgan_torch.track.ops import closure_project
 
 # pack=None on the card: no.  Measured on one H100 (PERF.md): an unpacked
 # 1024-level gumbel_64 batch crosses in 0.086 ms into pinned memory, while
@@ -134,11 +137,13 @@ def _on(x, dev, dtype=None):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
 
-def make_generator(cfg: Config, params, device) -> Generator:
-    """A Generator on ``device`` from a module or a ``state_dict`` mapping."""
-    if isinstance(params, Generator):
+def make_generator(cfg: Config, params, device):
+    """The family's generator (``Generator`` / ``TrackGenerator``) on
+    ``device`` from a module or a ``state_dict`` mapping."""
+    if isinstance(params, torch.nn.Module):
         return params.to(device).eval()
-    gen = Generator(cfg.model)
+    gen = (TrackGenerator if cfg.model.family == "track"
+           else Generator)(cfg.model)
     gen.load_state_dict(params)
     return gen.to(device).eval()
 
@@ -190,6 +195,15 @@ def generate_batch(gen: Generator, cfg: Config, z: torch.Tensor, cond=None, *,
     return pack_levels(ids, tile_bits(cfg.model.n_tiles)) if pack else ids
 
 
+@torch.inference_mode()
+def generate_tracks_batch(gen: TrackGenerator, z: torch.Tensor, cond=None, *,
+                          repair: bool = False) -> torch.Tensor:
+    """One batch of f32 tracks [B, T, 2] on the device; ``repair`` closes
+    each track's heading exactly (``closure_project``)."""
+    tracks = gen(z, cond)
+    return closure_project(tracks) if repair else tracks
+
+
 class _HostSink:
     """Moves each batch into ``levels`` on the host.  On the card a batch's
     D2H runs on a copy stream into one of ``STAGING`` pinned buffers as soon
@@ -200,7 +214,7 @@ class _HostSink:
 
     def __init__(self, levels: np.ndarray, pack: bool, device: torch.device):
         self.levels, self.pack, self.dev = levels, pack, device
-        self.side = levels.shape[-1]
+        self.side = levels.shape[-1]          # of a packed tile level
         if device.type == "cuda":
             self.copy_stream = torch.cuda.Stream(device)
             self.free = []
@@ -211,7 +225,8 @@ class _HostSink:
         if self.pack:
             unpack_levels(host, self.side, out=self.levels[row:row + k])
         else:
-            self.levels[row:row + k] = host.reshape(k, self.side, self.side)
+            self.levels[row:row + k] = host.reshape((k,)
+                                                    + self.levels.shape[1:])
 
     def put(self, row: int, out: torch.Tensor) -> None:
         if self.dev.type != "cuda":
@@ -247,11 +262,15 @@ def generate(cfg: Config, params, n: int, *, seed: int = 0,
              repair: bool | None = None, repair_placement: str | None = None,
              exactly_one: bool | None = None, device=None, z=None,
              noise=None, repair_scores=None) -> np.ndarray:
-    """Generate ``n`` tile levels -> host uint8 [n, H, W].
+    """Generate ``n`` tile levels -> host uint8 [n, H, W], or ``n`` tracks
+    -> host f32 [n, T, 2] (track family: ``noise``, ``repair_placement``,
+    ``exactly_one`` and ``repair_scores`` do not apply, ``pack=True`` is
+    refused, ``repair`` is the closure projection).
 
-    ``params``: a ``Generator`` or its ``state_dict``.  ``pack``: see
-    ``resolve_pack``.  ``repair`` / ``repair_placement`` / ``exactly_one``:
-    ``None`` reads the config policy (``resolve_export_policy``).  ``z``
+    ``params``: a ``Generator`` / ``TrackGenerator`` or its
+    ``state_dict``.  ``pack``: see ``resolve_pack``.  ``repair`` /
+    ``repair_placement`` / ``exactly_one``: ``None`` reads the config
+    policy (``resolve_export_policy``).  ``z``
     [n, latent_dim], ``noise`` (shaped as ``sample_head`` takes it, over n
     levels) and ``repair_scores`` ((start, goal) [n, H*W]) replace the
     draws of the seeded generators: z then the noise from one, the repair
@@ -261,33 +280,40 @@ def generate(cfg: Config, params, n: int, *, seed: int = 0,
     built here from a ``state_dict`` holds ordinary tensors, whose version
     counters let the kernels keep their packed weights across the batches.
     """
-    if cfg.model.family != "tile":
-        raise NotImplementedError(
-            "track-family export is not ported yet (the track slice)")
+    track = cfg.model.family == "track"
+    if track and pack:
+        raise ValueError("pack=True is tile-family only; track export "
+                         "returns float32 [n, T, 2] sequences")
     repair, placement, exactly_one = resolve_export_policy(
         cfg, repair, repair_placement, exactly_one)
     dev = resolve_device(device)
     m = cfg.model
-    pack = resolve_pack(m, pack, dev)
+    pack = False if track else resolve_pack(m, pack, dev)
     batch_size = min(batch_size, n)
     gen = make_generator(cfg, params, dev)
     rng = torch.Generator(dev).manual_seed(seed)
-    repair_rng = repair_generator(seed, dev) if repair else None
+    repair_rng = repair_generator(seed, dev) if repair and not track else None
     if cond is not None:
         cond = _on(cond, dev, torch.float32).expand(batch_size, m.cond_dim)
     z, noise, repair_scores = (_on(z, dev, torch.float32), _on(noise, dev),
                                _on(repair_scores, dev))
 
     n_batches = -(-n // batch_size)
-    levels = np.empty((n_batches * batch_size, m.level_size, m.level_size),
-                      np.uint8)
-    sink = _HostSink(levels, pack, dev)
+    if track:
+        out = np.empty((n_batches * batch_size, m.n_segments, 2), np.float32)
+    else:
+        out = np.empty((n_batches * batch_size, m.level_size, m.level_size),
+                       np.uint8)
+    sink = _HostSink(out, pack, dev)
     for lo in range(0, n, batch_size):
         hi = lo + batch_size
         zb = (z[lo:hi] if z is not None else
               torch.randn((batch_size, m.latent_dim), generator=rng,
                           device=dev))
         cb = cond[:zb.shape[0]] if cond is not None else None
+        if track:
+            sink.put(lo, generate_tracks_batch(gen, zb, cb, repair=repair))
+            continue
         sink.put(lo, generate_batch(
             gen, cfg, zb, cb, noise=_slice_noise(noise, lo, hi),
             generator=rng, pack=pack, repair=repair,
@@ -295,4 +321,4 @@ def generate(cfg: Config, params, n: int, *, seed: int = 0,
             repair_scores=_slice_noise(repair_scores, lo, hi),
             repair_rng=repair_rng))
     sink.drain()
-    return levels[:n]
+    return out[:n]

@@ -15,7 +15,9 @@ The picker (``make_gradient_penalty``) follows ``model.pallas_gp``:
 - ``'fused'``: the fused critic-gradient kernel with the K2 core around it
   (``kernels.critic_grad.gradient_penalty_fused``) where
   ``fused_supported`` holds, ``ValueError`` where it does not, as in the
-  JAX package.  This GP takes the ``Critic`` module, not any callable.
+  JAX package (and for the track family's critic, whose JAX step takes
+  the core GP whatever ``pallas_gp`` says).  This GP takes the ``Critic``
+  module, not any callable.
 
 In the JAX package ``'auto'`` resolves to the XLA GP from a TPU v5e
 measurement (``levelgan/kernels/critic_grad.py:434-449``).  That
@@ -72,6 +74,11 @@ def make_gradient_penalty(mcfg):
     if choice == "fused":
         from levelgan_torch.kernels.critic_grad import (
             fused_supported, gradient_penalty_fused)
+        if mcfg.family == "track":
+            raise ValueError(
+                "model.pallas_gp='fused' mirrors the tile critic only: "
+                "fused_supported is False for family='track' (its 1-D conv "
+                "critic); use 'core' or 'auto'")
         if not fused_supported(mcfg):
             raise ValueError(
                 "model.pallas_gp='fused' but the fused critic-gradient "

@@ -93,7 +93,8 @@ def check_step_config(cfg: Config) -> None:
     m, t = cfg.model, cfg.train
     if m.family != "tile":
         raise NotImplementedError(
-            "not ported yet: the track family's steps (track/train.py)")
+            "the tile steps do not train the track family: its steps are "
+            "track/train.py's (api.train picks them by model.family)")
     if t.w_closure:
         raise ValueError("train.w_closure is track-family only "
                          "(heading-closure prior); tile levels have no "

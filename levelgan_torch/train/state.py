@@ -14,6 +14,10 @@ GAN state plus the REINFORCE baseline ``g_baseline`` (a 0-d f32 tensor)
 and the strong and weak agents with their Adams (``optax.adam`` at its
 defaults, constant lr).  ``create_state`` draws each agent from a
 generator of its own, seeded by (seed, agent), after G and D.
+
+The track family (``model.family='track'``) holds the same states over
+its own models: ``TrackGenerator`` / ``TrackCritic``, and for the race
+curriculum two ``DriverPolicy`` MLPs in the agents' places.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ import numpy as np
 import torch
 
 from levelgan_torch.config import Config
-from levelgan_torch.env.agent import AgentPolicy, init_agent
+from levelgan_torch.env.agent import init_agent
 from levelgan_torch.models import Critic, Generator
+from levelgan_torch.track.models import TrackCritic, TrackGenerator
+from levelgan_torch.track.race import RaceParams, init_driver
 
 ADAM_BETAS = (0.9, 0.999)    # optax.adam's defaults, the agents' Adams
 _AGENT_TAG = 0xA6E7          # separates the agents' init streams
@@ -83,7 +89,8 @@ def lr_schedule(cfg: Config, base: float, updates_per_step: int = 1):
     raise ValueError(f"unknown lr_schedule '{t.lr_schedule}'")
 
 
-def make_optimizers(cfg: Config, gen: Generator, critic: Critic):
+def make_optimizers(cfg: Config, gen: torch.nn.Module,
+                    critic: torch.nn.Module):
     t = cfg.train
     d_updates = t.n_critic if t.loss in ("wgan_gp", "curriculum") else 1
     betas = (t.beta1, t.beta2)
@@ -93,9 +100,10 @@ def make_optimizers(cfg: Config, gen: Generator, critic: Critic):
     return opt_g, opt_d
 
 
-def make_agent_optimizers(cfg: Config, strong: AgentPolicy,
-                          weak: AgentPolicy):
-    """``optax.adam(agent_lr)`` and ``optax.adam(weak_agent_lr)``."""
+def make_agent_optimizers(cfg: Config, strong: torch.nn.Module,
+                          weak: torch.nn.Module):
+    """``optax.adam(agent_lr)`` and ``optax.adam(weak_agent_lr)`` over the
+    two agents (tile ``AgentPolicy`` or track ``DriverPolicy``)."""
     cur = cfg.curriculum
     return (ScheduledAdam(strong.parameters(), lambda _: cur.agent_lr,
                           ADAM_BETAS),
@@ -106,26 +114,45 @@ def make_agent_optimizers(cfg: Config, strong: AgentPolicy,
 @dataclass
 class GANState:
     step: int
-    generator: Generator
-    critic: Critic
+    generator: Generator | TrackGenerator
+    critic: Critic | TrackCritic
     opt_g: ScheduledAdam
     opt_d: ScheduledAdam
-    g_ema: Generator
+    g_ema: Generator | TrackGenerator
 
 
 @dataclass
 class CurriculumState(GANState):
     g_baseline: torch.Tensor
-    agent_strong: AgentPolicy
-    agent_weak: AgentPolicy
+    agent_strong: torch.nn.Module      # AgentPolicy / track DriverPolicy
+    agent_weak: torch.nn.Module
     opt_as: ScheduledAdam
     opt_aw: ScheduledAdam
 
 
+def model_classes(cfg: Config):
+    """(generator class, critic class) of ``cfg``'s model family."""
+    if cfg.model.family == "track":
+        return TrackGenerator, TrackCritic
+    return Generator, Critic
+
+
+def init_agents(cfg: Config, seed: int):
+    """Fresh (strong, weak) agents of ``cfg``'s family, each from a
+    generator seeded by (seed, agent)."""
+    def fresh(i):
+        gen = torch.Generator().manual_seed(int(np.random.SeedSequence(
+            [seed, _AGENT_TAG, i]).generate_state(1, np.uint64)[0]))
+        if cfg.model.family == "track":
+            return init_driver(RaceParams(), gen)
+        return init_agent(cfg.model, gen)
+    return fresh(0), fresh(1)
+
+
 def create_state(cfg: Config, device, *, seed: int | None = None,
-                 generator: Generator | None = None,
-                 critic: Critic | None = None,
-                 agents: tuple[AgentPolicy, AgentPolicy] | None = None
+                 generator: torch.nn.Module | None = None,
+                 critic: torch.nn.Module | None = None,
+                 agents: tuple[torch.nn.Module, torch.nn.Module] | None = None
                  ) -> GANState:
     """Fresh models (the Flax initializers, from a generator seeded with
     ``seed``, default ``train.seed``) or the given ones, fresh optimizers,
@@ -134,10 +161,11 @@ def create_state(cfg: Config, device, *, seed: int | None = None,
     m = cfg.model
     seed = cfg.train.seed if seed is None else seed
     init = torch.Generator().manual_seed(seed)
+    gen_cls, critic_cls = model_classes(cfg)
     if generator is None:
-        generator = Generator(m).init_params(init)
+        generator = gen_cls(m).init_params(init)
     if critic is None:
-        critic = Critic(m).init_params(init)
+        critic = critic_cls(m).init_params(init)
     generator, critic = generator.to(device), critic.to(device)
     opt_g, opt_d = make_optimizers(cfg, generator, critic)
     g_ema = copy.deepcopy(generator).requires_grad_(False)
@@ -146,9 +174,7 @@ def create_state(cfg: Config, device, *, seed: int | None = None,
     if cfg.train.loss != "curriculum":
         return GANState(**base)
     if agents is None:
-        agents = tuple(init_agent(m, torch.Generator().manual_seed(int(
-            np.random.SeedSequence([seed, _AGENT_TAG, i]).generate_state(
-                1, np.uint64)[0]))) for i in (0, 1))
+        agents = init_agents(cfg, seed)
     strong, weak = (a.to(device) for a in agents)
     opt_as, opt_aw = make_agent_optimizers(cfg, strong, weak)
     return CurriculumState(**base, g_baseline=torch.zeros((), device=device),
@@ -157,7 +183,7 @@ def create_state(cfg: Config, device, *, seed: int | None = None,
 
 
 @torch.no_grad()
-def update_ema(cfg: Config, ema: Generator, params: Generator,
+def update_ema(cfg: Config, ema: torch.nn.Module, params: torch.nn.Module,
                step: int) -> None:
     """In place: ema = d * ema + (1 - d) * params with the warm-up decay
     d = min(ema_decay, (1 + step) / (10 + step)); with ema_decay 0 the EMA

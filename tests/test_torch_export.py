@@ -122,17 +122,23 @@ def test_export_policy_and_wire_format_match_jax():
 
 
 def test_repair_and_track_raise_not_implemented(tmp_path):
+    """The track family exports since its slice; what it still refuses, as
+    the JAX package does: ``pack=True`` and outputs other than .npz and
+    .png."""
     from levelgan_torch.cli import export as cli
-    _, tcfg = _cfgs()
-    gen = Generator(tcfg.model)
-    track = Config.from_dict(j_preset("racetrack_32").to_dict())
-    with pytest.raises(NotImplementedError, match="track"):
-        texport.generate(track, gen, 4, device="cpu")
+    from levelgan_torch.track.models import TrackGenerator
+    track = Config.from_dict(j_preset("racetrack_32").override(**{
+        "model.rnn_hidden": 16, "model.n_segments": 16}).to_dict())
+    gen = TrackGenerator(track.model).init_params(
+        torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="pack=True is tile-family only"):
+        texport.generate(track, gen, 4, device="cpu", pack=True)
+    assert texport.generate(track, gen, 4, device="cpu").shape == (4, 16, 2)
     # the CLI on a track checkpoint, with the repair flags it also takes
     ckpt = save_checkpoint(str(tmp_path), gen, track, step=1)
-    with pytest.raises(NotImplementedError, match="track"):
+    with pytest.raises(SystemExit, match=".npz or .png"):
         cli.main(["--ckpt", ckpt, "--n", "2", "--out",
-                  str(tmp_path / "t.npz"), "--device", "cpu", "--repair"])
+                  str(tmp_path / "t.txt"), "--device", "cpu", "--repair"])
 
 
 def test_repair_runs_by_flag_and_by_config_policy():

@@ -25,6 +25,10 @@ _MODULES = [
     "levelgan_torch.ops.repair", "levelgan_torch.data.features",
     "levelgan_torch.lio.calibration", "levelgan_torch.lio.stats",
     "levelgan_torch.lio.quality", "levelgan_torch.cli.validate",
+    "levelgan_torch.track.data", "levelgan_torch.track.ops",
+    "levelgan_torch.track.models", "levelgan_torch.track.race",
+    "levelgan_torch.track.quality", "levelgan_torch.track.render",
+    "levelgan_torch.track.train",
     "chip_smoke", "whole_runs",
 ]
 

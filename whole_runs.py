@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Whole training runs of the port's tile presets, gated, and their record.
+"""Whole training runs of the port's presets, gated, and their record.
 
 ``python3 whole_runs.py train [--presets ...] [--out DIR]`` (on one CUDA
 card): trains each preset at its own defaults and full steps through
@@ -13,7 +13,11 @@ beside the checkpoint's ``manifest.json``, ``validate.json`` and
 trained agents, which the skill-gap gate plays); ``DIR/runs.json`` holds
 the card's name and power limit and each run's wall time.  The full
 checkpoints stay in ``whole_runs_work/`` (not kept: the optimizer state
-is 5x the EMA).
+is 5x the EMA).  The track presets (``racetrack_32``,
+``race_curriculum_32``) train the same way on their whole 4096-track
+corpus; their gates are the track family's (curvature KL, the scripted
+driver's laps; a race-curriculum run's drivers are kept for the skill
+gap).
 
 ``python3 whole_runs.py record --runs DIR [DIR ...] --work SCRATCH [--out
 PORT_GATES.json]`` (on a CPU with the JAX package and its ``tools/``):
@@ -45,7 +49,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PRESETS = ("toy_dcgan_16", "wgan_gp_32", "wgan_gp_32_structural",
            "conditional_32", "gumbel_64", "curriculum_16_joint",
-           "curriculum_16")
+           "curriculum_16", "racetrack_32", "race_curriculum_32")
 SPLIT = {"gumbel_64"}         # trained as two runs joined by --resume auto
 LOG_EVERY = 100
 
@@ -67,7 +71,9 @@ GATES_ALL = {"wgan_gp_32": "runs/wgan_base",
              "wgan_gp_32_structural": "runs/wgan_gp_32_structural",
              "conditional_32": "runs/conditional_projboost",
              "gumbel_64": "runs/gumbel_soak20k",
-             "curriculum_16_joint": "runs/curriculum_16_joint"}
+             "curriculum_16_joint": "runs/curriculum_16_joint",
+             "racetrack_32": "runs/track_cim",
+             "race_curriculum_32": "runs/race_curriculum_32"}
 _KEEP = ("g_ema/", "agent_strong/", "agent_weak/")   # kept of a checkpoint
 
 
@@ -92,10 +98,9 @@ def _config(name: str, sets: list[str]):
 
 
 def _carve(cfg, box: dict) -> None:
-    from levelgan_torch.data.dataset import LevelDataset
+    from levelgan_torch.api import make_dataset
     t0 = time.perf_counter()
-    box["ds"] = LevelDataset.from_config(cfg.data, cfg.model,
-                                         seed=cfg.train.seed)
+    box["ds"] = make_dataset(cfg)
     box["carve_s"] = time.perf_counter() - t0
 
 
