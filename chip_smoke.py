@@ -1173,9 +1173,10 @@ def record(rows, config, kern, stage, shape, errs, run, plain, library,
           f"bound_ms={b_ms:.5f} ({b_by})")
 
 
-def train_kernel_parity(cfg, device, rows):
+def train_kernel_parity(cfg, device, rows, b=B_TRAIN):
     """Phase 6: the training-path kernels at ``cfg``'s training shapes
-    (B = 64), each against its plain version, with kernel / plain /
+    (B = 64; another ``b`` records them under ``<preset>_b<b>``), each
+    against its plain version, with kernel / plain /
     library device times (``queued_ms``) and bounds, K1 forward included
     (the export phase holds it at B = 1024 only).  gumbel_64 also holds K1L
     bwd at a second shape (up2)."""
@@ -1186,7 +1187,8 @@ def train_kernel_parity(cfg, device, rows):
     from levelgan_torch.ops.blocks import upsample_block
 
     gs, slope = cfg.model.group_size, cfg.model.leaky_slope
-    bf16, b, name_cfg = torch.bfloat16, B_TRAIN, cfg.preset
+    bf16 = torch.bfloat16
+    name_cfg = cfg.preset if b == B_TRAIN else f"{cfg.preset}_b{b}"
     first = name_cfg == "gumbel_64"
 
     for i, (name, h, ci, co) in enumerate(stage_shapes(cfg)):
@@ -1334,6 +1336,51 @@ K2_CORE_SHAPES = (("gumbel_64", 64 * 64 * 8), ("wgan_gp_32", 32 * 32 * 8),
                   ("16x16", 16 * 16 * 8), ("racetrack_32", 32 * 2))
 
 
+def k2_core_pair(rows, config, b, f, gen, floor):
+    """K2 core fwd and bwd at [b, f] f32 (``k2_core_rows``' rows of one
+    shape); returns the (g2, ct) they ran on."""
+    import torch
+    from levelgan_torch.kernels import gp_penalty as k2
+    device = gen.device
+    g2 = torch.randn((b, f), generator=gen, device=device) * 0.01
+    ct = torch.randn((b,), generator=gen, device=device)
+    pen_k, norm_k = k2.norm_penalty_fwd(g2)
+    pen_2, norm_2 = k2.norm_penalty_fwd(g2)
+    if not (torch.equal(pen_k, pen_2) and torch.equal(norm_k, norm_2)):
+        fail(f"K2 core fwd at [{b}, {f}]: two calls differ")
+    errs = errs_of(("pen", "norm"), (pen_k, norm_k),
+                   k2.norm_penalty_fwd_plain(g2), K2_TOL)
+    record(rows, config, "K2 core fwd", "gp", [b, f], errs,
+           lambda: k2.norm_penalty_fwd(g2),
+           lambda: k2.norm_penalty_fwd_plain(g2),
+           lambda: torch.linalg.vector_norm(g2, dim=1), 2.0 * b * f,
+           4.0 * b * f + 2 * 4 * b, PEAK_F32_FLOPS)
+    plan = str(k2.fwd_plan(b, f))
+    rows[-1].update(floor_ms=floor, plan=plan,
+                    cold_ms=cold_ms(k2.norm_penalty_fwd, (g2,)))
+    print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
+          f"ms; two calls bit-identical; plan {plan}")
+    scale = (ct * 2.0 * (norm_k - 1.0) / norm_k)[:, None]
+    errs = errs_of(("dg",), (k2.norm_penalty_bwd(g2, norm_k, ct),),
+                   (k2.norm_penalty_bwd_plain(g2, norm_k, ct),), K2_TOL)
+    record(rows, config, "K2 core bwd", "gp", [b, f], errs,
+           lambda: k2.norm_penalty_bwd(g2, norm_k, ct),
+           lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
+           lambda: torch.mul(g2, scale), 1.0 * b * f,
+           8.0 * b * f + 3 * 4 * b, PEAK_F32_FLOPS)
+    plan = str(k2.bwd_plan(b, f))
+    rows[-1].update(floor_ms=floor, plan=plan, cold_ms=cold_ms(
+        k2.norm_penalty_bwd, (g2, norm_k, ct)))
+    print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
+          f"ms; plan {plan}")
+    ct0 = ct[:1].expand(b)
+    if not torch.equal(k2.norm_penalty_bwd(g2, norm_k, ct0),
+                       k2.norm_penalty_bwd(g2, norm_k, ct0.contiguous())):
+        fail(f"K2 core bwd at [{b}, {f}]: a stride-0 cotangent gives "
+             "another dg than a contiguous one")
+    return g2, ct
+
+
 def k2_core_rows(device, rows):
     """K2 core fwd / bwd at ``K2_CORE_SHAPES`` (B = 64, f32), each against
     its plain version by K2_TOL, two forward calls bit for bit, a stride-0
@@ -1350,42 +1397,7 @@ def k2_core_rows(device, rows):
           f"{floor:.5f} ms")
     gen = torch.Generator(device).manual_seed(400)
     for config, f in K2_CORE_SHAPES:
-        g2 = torch.randn((b, f), generator=gen, device=device) * 0.01
-        ct = torch.randn((b,), generator=gen, device=device)
-        pen_k, norm_k = k2.norm_penalty_fwd(g2)
-        pen_2, norm_2 = k2.norm_penalty_fwd(g2)
-        if not (torch.equal(pen_k, pen_2) and torch.equal(norm_k, norm_2)):
-            fail(f"K2 core fwd at [{b}, {f}]: two calls differ")
-        errs = errs_of(("pen", "norm"), (pen_k, norm_k),
-                       k2.norm_penalty_fwd_plain(g2), K2_TOL)
-        record(rows, config, "K2 core fwd", "gp", [b, f], errs,
-               lambda: k2.norm_penalty_fwd(g2),
-               lambda: k2.norm_penalty_fwd_plain(g2),
-               lambda: torch.linalg.vector_norm(g2, dim=1), 2.0 * b * f,
-               4.0 * b * f + 2 * 4 * b, PEAK_F32_FLOPS)
-        plan = str(k2.fwd_plan(b, f))
-        rows[-1].update(floor_ms=floor, plan=plan,
-                        cold_ms=cold_ms(k2.norm_penalty_fwd, (g2,)))
-        print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
-              f"ms; two calls bit-identical; plan {plan}")
-        scale = (ct * 2.0 * (norm_k - 1.0) / norm_k)[:, None]
-        errs = errs_of(("dg",), (k2.norm_penalty_bwd(g2, norm_k, ct),),
-                       (k2.norm_penalty_bwd_plain(g2, norm_k, ct),), K2_TOL)
-        record(rows, config, "K2 core bwd", "gp", [b, f], errs,
-               lambda: k2.norm_penalty_bwd(g2, norm_k, ct),
-               lambda: k2.norm_penalty_bwd_plain(g2, norm_k, ct),
-               lambda: torch.mul(g2, scale), 1.0 * b * f,
-               8.0 * b * f + 3 * 4 * b, PEAK_F32_FLOPS)
-        plan = str(k2.bwd_plan(b, f))
-        rows[-1].update(floor_ms=floor, plan=plan, cold_ms=cold_ms(
-            k2.norm_penalty_bwd, (g2, norm_k, ct)))
-        print(f"    floor {floor:.5f} ms, L2-cold {rows[-1]['cold_ms']:.5f} "
-              f"ms; plan {plan}")
-        ct0 = ct[:1].expand(b)
-        if not torch.equal(k2.norm_penalty_bwd(g2, norm_k, ct0),
-                           k2.norm_penalty_bwd(g2, norm_k, ct0.contiguous())):
-            fail(f"K2 core bwd at [{b}, {f}]: a stride-0 cotangent gives "
-                 "another dg than a contiguous one")
+        g2, ct = k2_core_pair(rows, config, b, f, gen, floor)
     # a row that the forward reads in several chunks: gumbel_64 at
     # model.level_size=128
     g2l = torch.randn((b, 128 * 128 * 8), generator=gen, device=device) * 0.01
@@ -1746,24 +1758,31 @@ def sample_errs(name, got, want):
                                       FLIP_TOL)}
 
 
-def fused_kernel_parity(device, rows):
+def fused_kernel_parity(device, rows, b=B_TRAIN, only=None):
     """Phase 6, K2 fused: the kernel against ``critic_trunk_grad_plain`` on
     the card at the 32x32 critic (the wgan_gp_32 shape) and the 16x16
     critic, with GroupNorm off at the first and group size 8 at the
     second; timed at the two preset shapes.  The library call is the same
     function through cuDNN and autograd in bf16: the trunk's forward from
-    layer 0's pre-activation and one ``torch.autograd.grad`` back to it."""
+    layer 0's pre-activation and one ``torch.autograd.grad`` back to it.
+    ``only`` picks cases by name; at another ``b`` than B = 64 the rows are
+    recorded under ``<case>_b<b>``."""
     import torch
     import torch.nn.functional as F
     from levelgan_torch.kernels import critic_grad as k2f
 
-    slope, b = 0.2, B_TRAIN
+    slope = 0.2
     cases = (("wgan_gp_32", 16, (64, 128, 256), True, 16, True),
              ("curriculum_16", 8, (64, 128), True, 16, True),
              ("32x32, norm none", 16, (64, 128, 256), False, 16, False),
              ("16x16, group size 8", 8, (64, 128), True, 8, False))
     for i, (name, m0, chans, has_gn, gs, timed) in enumerate(cases):
-        a0, layers, head_w = trunk_inputs(m0, chans, has_gn, device, 500 + i)
+        if only is not None and name not in only:
+            continue
+        a0, layers, head_w = trunk_inputs(m0, chans, has_gn, device, 500 + i,
+                                          batch=b)
+        if b != B_TRAIN:
+            name = f"{name}_b{b}"
 
         def run():
             return k2f.critic_trunk_grad(a0, layers, head_w, slope=slope,
@@ -3026,6 +3045,355 @@ def track_repro(device, workdir, steps=REPRO_STEPS):
             fail("racetrack_32 training is not bit-reproducible")
 
 
+# ---- the dp phase: data parallelism through mesh.launch -------------------
+
+DP_PRESETS = ("curriculum_16", "gumbel_64")
+DP_STEPS = 3                 # steps of each world-size-1 launcher run
+DP_COMPARE_STEPS = 10        # steps of the dp=N against dp=1 runs
+B_RANK = B_TRAIN // 4        # a rank's batch at dp=4, the kernels' B there
+DP_COS = 0.95                # cosine of a model's 10-step update, dp=N vs 1
+DP_LOSS = 0.05               # |d_loss dp=N - dp=1| / max(1, |d_loss dp=1|)
+
+
+class tf32_as_torch:
+    """torch's own TF32 settings (main() turns TF32 off for the plain
+    references), as the train CLI and a launched rank run."""
+
+    def __enter__(self):
+        import torch
+        self.backends = torch.backends.cudnn, torch.backends.cuda.matmul
+        self.saved = [b.allow_tf32 for b in self.backends]
+        for b, on in zip(self.backends, TORCH_TF32 or self.saved):
+            b.allow_tf32 = on
+
+    def __exit__(self, *exc):
+        for b, on in zip(self.backends, self.saved):
+            b.allow_tf32 = on
+
+
+def dp_train(cfg_dict, device_type="cuda"):
+    """On each rank of ``mesh.launch``: ``api.train`` with counted
+    launches; the rank's result and its counts."""
+    import torch
+    from levelgan_torch import api
+    from levelgan_torch.config import Config
+    reset_counts()
+    res = api.train(Config.from_dict(cfg_dict), device=device_type,
+                    echo=False)
+    if device_type == "cuda":
+        torch.cuda.synchronize()
+    return {"result": res, "counts": read_counts()}
+
+
+def dp_steps(cfg_dict, warm, timed, profiled, device_type="cuda"):
+    """On each rank: the data-parallel step loop on a seeded random corpus
+    on the card (``api.step_inputs``, as api.train draws and shards), a
+    device sync and a host barrier around each timed step; then
+    ``profiled`` steps under torch.profiler: the rank's device busy time,
+    its NCCL kernels' time and its idle share a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from levelgan_torch import api
+    from levelgan_torch.config import Config
+    from levelgan_torch.dist import mesh
+    from levelgan_torch.train.state import create_state
+
+    cfg = Config.from_dict(cfg_dict)
+    m = cfg.model
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    sync = torch.cuda.synchronize if device_type == "cuda" else (
+        lambda: None)
+    state, step_fn = create_state(cfg, dev), api.make_step_fn(cfg)
+    corpus = torch.randint(0, m.n_tiles, (CORPUS_CUT, m.level_size,
+                                          m.level_size), dtype=torch.uint8,
+                           device=dev,
+                           generator=torch.Generator(dev).manual_seed(9))
+    times = []
+    with api.step_mode():
+        for i in range(warm + timed):
+            batch, noise = api.step_inputs(cfg, corpus, i, dev)
+            sync()
+            mesh.barrier()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch, noise=noise)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        mesh.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(profiled):
+                batch, noise = api.step_inputs(cfg, corpus, 1000 + i, dev)
+                state, _ = step_fn(state, batch, noise=noise)
+            sync()
+            wall = 1e3 * (time.perf_counter() - t0) / profiled
+    rows = device_rows(prof)
+    busy = sum(dev_us(e) for e in rows) / 1e3 / profiled
+    nccl = sum(dev_us(e) for e in rows if "nccl" in e.key.lower()
+               ) / 1e3 / profiled
+    return {"rank": mesh.rank(), "step_ms": statistics.median(times[warm:]),
+            "min_ms": min(times[warm:]), "max_ms": max(times[warm:]),
+            "wall_ms": wall, "busy_ms": busy, "nccl_ms": nccl,
+            "nccl_calls": sum(e.count for e in rows
+                              if "nccl" in e.key.lower()) // profiled,
+            "idle": max(0.0, 1 - busy / wall) if rows else None}
+
+
+def dp_allreduce(names, reps=20):
+    """On each rank: one update's all-reduce alone (``all_reduce_grads``
+    over gradients of the shapes of each config's generator and critic),
+    the ranks lined up first (host barrier, device sync), CUDA events
+    around the call; the median ms by config and model."""
+    import torch
+    from levelgan_torch.config import preset
+    from levelgan_torch.dist import mesh
+    from levelgan_torch.train.state import create_state
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": mesh.rank()}
+    for name in names:
+        state = create_state(preset(name), dev)
+        for model in ("generator", "critic"):
+            grads = [torch.randn_like(p) for p in
+                     getattr(state, model).parameters()]
+            ms = []
+            for i in range(reps + 3):
+                torch.cuda.synchronize()
+                mesh.barrier()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                mesh.all_reduce_grads(grads)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            out[f"{name} {model}"] = (
+                statistics.median(ms[3:]),
+                4 * sum(g.numel() for g in grads) / 2 ** 20)
+    return out
+
+
+def print_allreduce(plan) -> None:
+    print(f"  one update's all-reduce alone at dp={plan.world}, the ranks "
+          "lined up:")
+    from levelgan_torch.dist import mesh
+    for r in mesh.launch(dp_allreduce, (DP_PRESETS,), {}, plan):
+        print(f"  rank {r.pop('rank')}: " + "; ".join(
+            f"{k} {ms:.4f} ms for {mib:.2f} MiB" for k, (ms, mib)
+            in r.items()))
+
+
+def dp_allreduce_main() -> int:
+    """``python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.
+    dp_allreduce_main())"``: ``dp_allreduce`` over every card."""
+    import torch
+    from levelgan_torch.dist import mesh
+    n = torch.cuda.device_count()
+    print(f"card: {card_line()}; {n} cards")
+    print_allreduce(mesh.Plan(world=n, local=n, first_rank=0,
+                              device_type="cuda"))
+    return 0
+
+
+def dp_config(name, workdir, tag, steps, **kw):
+    """``name`` for ``steps`` steps, one rank unless ``kw`` says otherwise
+    (``dist.dp=0`` would take every card), corpus cut to REPRO_CORPUS."""
+    from levelgan_torch.config import preset
+    return preset(name).override(**{
+        "data.corpus_size": REPRO_CORPUS, "train.steps": steps,
+        "dist.dp": 1,
+        "io.log_every": 1, "io.out_dir": os.path.join(workdir,
+                                                      f"dp_{name}_{tag}"),
+        **kw})
+
+
+def dp_launcher_runs(device, workdir, train_counts):
+    """One card: each of DP_PRESETS trained DP_STEPS steps in this process
+    and through ``mesh.launch`` at world size 1 (NCCL, the gloo host
+    group), whose checkpoint must equal this process's bit for bit; the
+    launched rank's kernel launches (counted in that process) must be
+    DP_STEPS times the per-step counts."""
+    from levelgan_torch import api
+    from levelgan_torch.dist import mesh
+
+    plan = mesh.Plan(world=1, local=1, first_rank=0, device_type="cuda")
+    for name in DP_PRESETS:
+        alone = dp_config(name, workdir, "alone", DP_STEPS)
+        with tf32_as_torch():
+            res = api.train(alone, device=device, echo=False)
+        t0 = time.perf_counter()
+        [rank] = mesh.launch(dp_train, (dp_config(
+            name, workdir, "launched", DP_STEPS).to_dict(),), {}, plan)
+        wall = time.perf_counter() - t0
+        want = load_arrays(res["checkpoint"])
+        diff = differing(load_arrays(rank["result"]["checkpoint"]), want)
+        expect = {k: DP_STEPS * v for k, v in PER_STEP[name].items()}
+        print(f"  {name}: {DP_STEPS} steps through mesh.launch at world size "
+              f"1 (NCCL) in {wall:.1f} s wall (a fresh process: start, "
+              f"carving, the steps); checkpoint "
+              + ("bit-identical to" if not diff else "differs from")
+              + f" this process's run in {len(want)} arrays; the rank's "
+              f"launches {rank['counts']}")
+        if diff:
+            fail(f"{name} through the launcher differs from the run without "
+                 f"it: {diff[:8]}")
+        if rank["counts"] != expect:
+            fail(f"{name} through the launcher: launches {rank['counts']} "
+                 f"!= expected {expect}")
+        train_counts[f"dp {name}"] = rank["counts"]
+
+
+def dp_update_agreement(ref, got, start):
+    """The cosine of each model's update from ``start``, ``ref``'s against
+    ``got``'s."""
+    import numpy as np
+    out = {}
+    for field in ("generator", "discriminator"):
+        keys = [k for k in ref if k.startswith(field + "/")]
+        a = np.concatenate([(ref[k] - start[k]).ravel() for k in keys]
+                           ).astype(np.float64)
+        b = np.concatenate([(got[k] - start[k]).ravel() for k in keys]
+                           ).astype(np.float64)
+        out[field] = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    return out
+
+
+def dp_many_cards(device, workdir, n):
+    """Two or more cards: each of DP_PRESETS at dp=n against dp=1 on the
+    same global batch (DP_COMPARE_STEPS steps: every step's d_loss by
+    DP_LOSS, each model's update by DP_COS; bf16, so not the f32 CPU
+    tests' tolerance), two dp=n runs bit for bit (the runs' own replica
+    check held every rank bit-equal at the checkpoints), a SIGTERM to a
+    dp=n CLI run (every rank stops after one step, one checkpoint, exit 0),
+    and the warm step, the NCCL all-reduce's device time and each rank's
+    idle share at dp=n against dp=1 (``dp_steps``)."""
+    import signal
+    import numpy as np
+    from levelgan_torch import api
+    from levelgan_torch.dist import mesh
+    from levelgan_torch.lio.checkpoint import all_checkpoints
+
+    dt = device.type
+    many = mesh.Plan(world=n, local=n, first_rank=0, device_type=dt)
+    one = mesh.Plan(world=1, local=1, first_rank=0, device_type=dt)
+    for name in DP_PRESETS:
+        init = dp_config(name, workdir, "init", 0)
+        with tf32_as_torch():
+            start = load_arrays(api.train(init, device=device,
+                                          echo=False)["checkpoint"])
+        runs = {}
+        for tag, plan in (("dp1", one), (f"dp{n}", many), (f"dp{n}b", many)):
+            cfg = dp_config(name, workdir, tag, DP_COMPARE_STEPS,
+                            **{"dist.dp": plan.world})
+            t0 = time.perf_counter()
+            ranks = mesh.launch(dp_train, (cfg.to_dict(), dt), {}, plan)
+            runs[tag] = (load_arrays(ranks[0]["result"]["checkpoint"]),
+                         [r["d_loss"] for r in map(json.loads, open(
+                             os.path.join(cfg.io.out_dir, "metrics.jsonl")))
+                          if "d_loss" in r],
+                         time.perf_counter() - t0)
+            print(f"  {name} {tag}: {DP_COMPARE_STEPS} steps in "
+                  f"{runs[tag][2]:.1f} s wall; rank 0's launches "
+                  f"{ranks[0]['counts']}")
+        (ref, l1, _), (got, ln, _), (again, _, _) = (
+            runs["dp1"], runs[f"dp{n}"], runs[f"dp{n}b"])
+        diff = differing(got, again)
+        print(f"  {name}: two dp={n} runs "
+              + ("bit-identical" if not diff else "differ")
+              + f" in {len(got)} arrays")
+        if diff:
+            fail(f"{name}: two dp={n} runs differ: {diff[:8]}")
+        cos = dp_update_agreement(ref, got, start)
+        lr = preset_lr(name)
+        worst = max(float(np.abs(got[k] - ref[k]).max()) for k in ref
+                    if k.startswith(("generator/", "discriminator/")))
+        loss = [abs(a - b) / max(1.0, abs(a)) for a, b in zip(l1, ln)]
+        print(f"  {name} dp={n} against dp=1: update cosine "
+              f"{ {k: round(v, 5) for k, v in cos.items()} }; max |param "
+              f"diff| {worst:.3g} ({worst / lr:.3g} lr); d_loss per step "
+              f"dp=1 {[round(x, 5) for x in l1]} dp={n} "
+              f"{[round(x, 5) for x in ln]}, max rel diff {max(loss):.4g}")
+        if min(cos.values()) < DP_COS or max(loss) > DP_LOSS:
+            fail(f"{name}: dp={n} does not follow dp=1 (cosine {cos}, "
+                 f"d_loss {max(loss):.4g})")
+        for tag, plan in (("dp1", one), (f"dp{n}", many)):
+            cfg = dp_config(name, workdir, "steps", 0,
+                            **{"dist.dp": plan.world})
+            res = mesh.launch(dp_steps, (cfg.to_dict(), 5, 15, 3, dt), {},
+                              plan)
+            for r in res:
+                print(f"  {name} {tag} rank {r['rank']}: warm step median "
+                      f"{r['step_ms']:.3f} ms ({r['min_ms']:.3f}-"
+                      f"{r['max_ms']:.3f}); profiled {r['wall_ms']:.3f} ms "
+                      f"a step, device busy {r['busy_ms']:.3f} ms, NCCL "
+                      f"{r['nccl_ms']:.4f} ms in {r['nccl_calls']} kernels, "
+                      f"idle share {r['idle']}")
+    print_allreduce(many)
+    # SIGTERM to the launching CLI process
+    cfg = dp_config("curriculum_16", workdir, "sigterm", 500,
+                    **{"dist.dp": n})
+    cfg_path = os.path.join(workdir, "dp_sigterm.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+    out = cfg.io.out_dir
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "levelgan_torch.cli.train", "--config",
+         cfg_path, "--device", dt], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    metrics = os.path.join(out, "metrics.jsonl")
+    try:
+        t0 = time.perf_counter()
+        while not (os.path.exists(metrics) and os.path.getsize(metrics)):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                fail("the dp CLI logged no step: "
+                     + proc.communicate(timeout=60)[0][-2000:])
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        text = proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    ckpts = all_checkpoints(os.path.join(out, "ckpt"))
+    step = int(load_arrays(ckpts[-1])["step"]) if ckpts else None
+    print(f"  SIGTERM to a dp={n} CLI run after its first logged step: exit "
+          f"{proc.returncode}, {len(ckpts)} checkpoint(s), at step {step}")
+    if (proc.returncode != 0 or len(ckpts) != 1 or step is None
+            or not step < cfg.train.steps or "preempted" not in text):
+        fail(f"SIGTERM at dp={n}: exit {proc.returncode}, checkpoints "
+             f"{ckpts}: {text[-2000:]}")
+
+
+def preset_lr(name):
+    from levelgan_torch.config import preset
+    return preset(name).train.lr_g
+
+
+def dp_phase(device, workdir, rows, train_counts):
+    """The dp phase: the path's kernels at a dp=4 rank's batch (B = 16)
+    against their plain versions, the launcher at world size 1, and with
+    two or more cards the data-parallel runs (``dp_many_cards``)."""
+    import torch
+    from levelgan_torch.config import preset
+    print(f"  the path's kernels at a dp=4 rank's batch, B = {B_RANK}:")
+    for name in ("curriculum_16", "gumbel_64"):
+        train_kernel_parity(preset(name), device, rows, b=B_RANK)
+    fused_kernel_parity(device, rows, b=B_RANK, only=("curriculum_16",))
+    gen = torch.Generator(device).manual_seed(410)
+    floor = launch_floor_ms()
+    for config, f in (("16x16", 16 * 16 * 8), ("gumbel_64", 64 * 64 * 8)):
+        k2_core_pair(rows, f"{config}_b{B_RANK}", B_RANK, f, gen, floor)
+    dp_launcher_runs(device, workdir, train_counts)
+    n = torch.cuda.device_count()
+    if n > 1:
+        dp_many_cards(device, workdir, n)
+    else:
+        print("  one card: the dp=N runs need two or more (python3 "
+              "chip_smoke.py --phases build,dp on a machine with four)")
+
+
+
 def kernels_line(records, counts, train_records, train_counts):
     """One entry per kernel.  The forward kernels' times are summed over
     the stages they serve on the export path (per 1024-level batch), with
@@ -3110,7 +3478,7 @@ def kernels_line(records, counts, train_records, train_counts):
 
 PHASES = ("build", "parity", "export", "export_repair", "export_cond",
           "export_profile", "train_parity", "k2_core", "train", "train_check",
-          "train_profile", "repro")
+          "train_profile", "repro", "dp")
 
 
 def main(argv=()) -> int:
@@ -3249,6 +3617,10 @@ def main(argv=()) -> int:
             print("reproducibility: racetrack_32 trained in a fresh process "
                   "and here from one seed")
             track_repro(device, workdir)
+        if phase("dp"):
+            print("data parallelism: the path's kernels at a rank's batch, "
+                  "the launcher at world size 1, and dp=N with N cards")
+            dp_phase(device, workdir, train_records, train_counts)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[{time.perf_counter() - t_start:7.1f} s] phases done")

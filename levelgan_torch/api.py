@@ -44,15 +44,29 @@ re-raised.  ``io.debug_nans`` runs each step under
 and stops with ``FloatingPointError`` naming the first non-finite metric
 of a step.
 
-The port runs eagerly on one device, so ``train.steps_per_dispatch`` (how
-many jitted steps the JAX package scans per dispatch) has no meaning here
-and is ignored, as are ``io.compile_cache`` (XLA's cache) and
-``data.feed`` (the corpus is always on the device).
+Data parallelism (``dist/mesh.py``): ``dist.dp`` ranks (0: every visible
+card), over ``dist.num_processes`` hosts that meet at
+``dist.coordinator_address``.  With more than one rank ``train`` builds
+the kernels once, then starts one process a card (``mesh.launch``) and
+returns rank 0's summary; a process that a launcher started joins its
+group instead.  Each rank draws the global batch's indices and noise from
+the step's generator, as one process does, and steps on its slice; the
+steps all-reduce every update's gradients and make their batch statistics
+global, so a data-parallel step computes the single-process step on the
+same global batch.  Only rank 0 writes checkpoints (after checking that
+every rank holds the same bits), ``metrics.jsonl`` and ``ckpt_best/``;
+metrics and the tile histogram are reduced over the ranks at log points
+only.  A stop signal reaches every rank (the launcher forwards it), and
+the ranks agree on the host, once a step, to stop after the same step.
+
+The port runs eagerly, so ``train.steps_per_dispatch`` (how many jitted
+steps the JAX package scans per dispatch) has no meaning here and is
+ignored, as are ``io.compile_cache`` (XLA's cache) and ``data.feed`` (the
+corpus is always on the device).
 
 Not in this slice, each raising ``NotImplementedError`` rather than being
-skipped: ``io.render_every`` (PNG renders), ``io.profile``,
-``io.tensorboard`` and data parallelism (``dist.dp > 1``,
-``dist.coordinator_address``, ``dist.num_processes > 1``).
+skipped: ``io.render_every`` (PNG renders), ``io.profile`` and
+``io.tensorboard``.
 """
 
 from __future__ import annotations
@@ -71,18 +85,22 @@ from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
 from levelgan_torch.data.dataset import LevelDataset
 from levelgan_torch.device import resolve_device
+from levelgan_torch.dist import mesh
 from levelgan_torch.lio.checkpoint import (all_checkpoints, load_checkpoint,
                                            save_checkpoint)
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
 from levelgan_torch.lio.quality import playability
 from levelgan_torch.models import sample_head
 from levelgan_torch.track.data import TrackDataset
-from levelgan_torch.track.train import (make_track_curriculum_step,
+from levelgan_torch.track.train import (draw_track_noise,
+                                        make_track_curriculum_step,
                                         make_track_wgan_step)
-from levelgan_torch.train.curriculum import make_curriculum_step
-from levelgan_torch.train.gan import corpus_cond_scale, make_gan_step
+from levelgan_torch.train.curriculum import (draw_curriculum_noise,
+                                             make_curriculum_step)
+from levelgan_torch.train.gan import (corpus_cond_scale, draw_gan_step_noise,
+                                      make_gan_step)
 from levelgan_torch.train.state import create_state
-from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+from levelgan_torch.train.wgan_gp import draw_step_noise, make_wgan_gp_step
 
 _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 _PROBE_TAG = 0x9B0BE         # the quality probe's stream
@@ -93,17 +111,11 @@ _TRACK_STEPS = {"wgan_gp": make_track_wgan_step,
 
 
 def _not_ported(cfg: Config) -> None:
-    io, t, m, d = cfg.io, cfg.train, cfg.model, cfg.dist
+    io, t, m = cfg.io, cfg.train, cfg.model
     later = [
         (io.render_every, "io.render_every (PNG renders during training)"),
         (io.profile, "io.profile (a profiler trace of the run)"),
         (io.tensorboard, "io.tensorboard (TensorBoard scalars)"),
-        (d.dp > 1, f"dist.dp={d.dp}: data parallelism (dist/mesh.py as "
-                   "torch DDP); the port trains on one device"),
-        (d.coordinator_address, "dist.coordinator_address: multi-host "
-                                "training (dist/mesh.py)"),
-        (d.num_processes > 1, f"dist.num_processes={d.num_processes}: "
-                              "multi-process training (dist/mesh.py)"),
     ]
     for on, why in later:
         if on:
@@ -190,9 +202,59 @@ def sample_batch(corpus: torch.Tensor, cfg: Config,
     return corpus[idx]
 
 
+def draw_noise(cfg: Config, batch: torch.Tensor,
+               generator: torch.Generator) -> dict:
+    """All random draws of one step over ``batch`` (``sample_batch``'s), in
+    the order the step would draw them itself."""
+    t = cfg.train
+    if cfg.model.family == "track":
+        return draw_track_noise(cfg, t.n_critic, t.batch_size, batch.device,
+                                generator)
+    if t.loss == "gan":
+        return draw_gan_step_noise(cfg, t.batch_size, batch.device,
+                                   generator)
+    draw = (draw_curriculum_noise if t.loss == "curriculum"
+            else draw_step_noise)
+    return draw(cfg, t.n_critic, t.batch_size, batch.device, generator)
+
+
+def step_inputs(cfg: Config, corpus: torch.Tensor, step: int, device):
+    """(batch, noise) of train step ``step`` on this rank: the global
+    batch's indices and draws from ``step_generator``, then this rank's
+    slice of each (``mesh.shard_tree``; the whole of them in one
+    process)."""
+    rng = step_generator(cfg, step, device)
+    batch = sample_batch(corpus, cfg, rng)
+    noise = draw_noise(cfg, batch, rng)
+    axis = 0 if cfg.train.loss == "gan" else 1
+    return mesh.shard(batch, axis), mesh.shard_tree(noise)
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of ``state`` by name: the models' parameters and
+    buffers, the optimizers' moments, the baseline."""
+    out = {}
+    for name, obj in vars(state).items():
+        if isinstance(obj, torch.nn.Module):
+            out.update({f"{name}.{k}": v
+                        for k, v in obj.state_dict().items()})
+        elif isinstance(obj, torch.optim.Optimizer):
+            for i, p in enumerate(obj.state.values()):
+                out.update({f"{name}.{i}.{k}": v for k, v in p.items()
+                            if isinstance(v, torch.Tensor)})
+        elif isinstance(obj, torch.Tensor):
+            out[name] = obj
+    return out
+
+
 def save_state(ckpt_dir: str, state, cfg: Config, step: int,
                keep: int) -> str:
-    """The full-state checkpoint of ``state`` at ``step``."""
+    """The full-state checkpoint of ``state`` at ``step`` (written by rank
+    0, once every rank is shown to hold the same bits)."""
+    diverged = mesh.same_on_every_rank(_state_tensors(state))
+    if diverged:
+        raise RuntimeError(f"data-parallel ranks hold different states at "
+                           f"step {step}: {diverged[:8]}")
     extra = {}
     if hasattr(state, "agent_strong"):
         extra = {"g_baseline": state.g_baseline, "agents": {
@@ -238,21 +300,32 @@ def resume(cfg: Config, state, ckpt_dir: str, echo: bool = True):
 class _StopRequest:
     """SIGTERM / SIGINT request a stop (``self.requested``); a second signal
     restores the old handlers and re-raises.  Installed only on the main
-    thread; ``restore`` puts the old handlers back."""
+    thread; ``restore`` puts the old handlers back.
 
-    def __init__(self):
-        self.requested = False
+    A rank that ``mesh.launch`` started (``launcher`` its pid) takes every
+    signal as the one request (its launcher forwards a terminal's SIGINT
+    that the rank got too, and kills the ranks at a second signal), and
+    stops when its launcher is gone."""
+
+    def __init__(self, launcher: int | None = None):
+        self._requested = False
+        self._launcher = launcher
         self._old = {}
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
                 self._old[sig] = signal.signal(sig, self._handle)
 
+    @property
+    def requested(self) -> bool:
+        return self._requested or (self._launcher is not None
+                                   and os.getppid() != self._launcher)
+
     def _handle(self, signum, frame):
-        if self.requested:
+        if self._requested and self._launcher is None:
             self.restore()
             signal.raise_signal(signum)
             return
-        self.requested = True
+        self._requested = True
 
     def restore(self):
         while self._old:
@@ -271,10 +344,48 @@ def _check_finite(step: int, metrics: dict) -> None:
 
 def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     """Run training per ``cfg``; returns ``{checkpoint, preempted, kl,
-    metrics}`` (and ``best``, the ``ckpt_best/`` checkpoint, under
-    ``io.keep_best``)."""
+    metrics, rank}`` (and ``best``, the ``ckpt_best/`` checkpoint, under
+    ``io.keep_best``).  With more than one rank (``dist``), rank 0's on
+    the host that holds it, else this host's first rank's."""
     _not_ported(cfg)
     dev = resolve_device(device)
+    if mesh.launched():
+        if not mesh.active():
+            mesh.join_from_env(dev.type)
+        _check_mesh(cfg, mesh.world_size())
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return _train(cfg, dev, echo)
+    plan = mesh.make_plan(cfg.dist, dev.type)
+    _check_mesh(cfg, plan.world)
+    if plan.world == 1 and plan.init_method is None:
+        return _train(cfg, dev, echo)
+    if plan.device_type == "cuda":      # once here, not in every rank
+        from levelgan_torch.kernels import build
+        build.build_all()
+    return mesh.launch(train, (cfg,), {"device": dev.type, "echo": echo},
+                       plan)[0]
+
+
+def _check_mesh(cfg: Config, world: int) -> None:
+    """The refusals of a mesh of ``world`` ranks."""
+    d, b = cfg.dist.dp, cfg.train.batch_size
+    if d and d != world:
+        raise ValueError(f"dist.dp={d} but the mesh has {world} ranks")
+    if b % world:
+        raise ValueError(f"batch_size {b} not divisible by mesh size "
+                         f"{world}")
+    if cfg.model.critic_mbstd and world > 1:
+        raise NotImplementedError(
+            "not ported yet: model.critic_mbstd under data parallelism (a "
+            "batch statistic inside the critic and the GP's double "
+            "backward; it would need a differentiable all-gather)")
+
+
+def _train(cfg: Config, dev: torch.device, echo: bool) -> dict:
+    """The training loop of this process (one rank of a mesh, or alone)."""
+    rank = mesh.rank()
+    echo = echo and rank == 0
     ds = make_dataset(cfg)
     track = cfg.model.family == "track"
     cond_scale = (corpus_cond_scale(cfg, ds.levels)
@@ -302,8 +413,8 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
         n_g = sum(p.numel() for p in state.generator.parameters())
         n_d = sum(p.numel() for p in state.critic.parameters())
         print(f"[levelgan_torch] preset={cfg.preset} loss={cfg.train.loss} "
-              f"device={dev} G params={n_g:,} D params={n_d:,} "
-              f"start step={state.step}", flush=True)
+              f"device={dev} dp={mesh.world_size()} G params={n_g:,} "
+              f"D params={n_d:,} start step={state.step}", flush=True)
     quality_probe = (make_quality_probe(cfg, io.quality_n)
                      if quality_every else None)
     # conditional probes ask for 0.25 in every feature, as the JAX package's
@@ -315,20 +426,23 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     kl, last_metrics = float("nan"), {}
     start = state.step
     t_last, last_i = time.monotonic(), start
-    stop = _StopRequest()
+    launcher = mesh.launcher_pid()
+    stop = _StopRequest() if launcher is None else _StopRequest(launcher)
+    stopped = False
     try:
         for i in range(start, steps):
-            if stop.requested:
+            if mesh.any_rank(stop.requested):
+                stopped = True
                 break
-            rng = step_generator(cfg, i, dev)
-            batch = sample_batch(corpus, cfg, rng)
+            batch, noise = step_inputs(cfg, corpus, i, dev)
             with step_mode(io.debug_nans):
-                state, metrics = step_fn(state, batch, generator=rng)
+                state, metrics = step_fn(state, batch, noise=noise)
             if io.debug_nans:
                 _check_finite(i + 1, metrics)
             gen_hist += metrics.pop("gen_hist")
             if crossed(io.log_every, i, i + 1) or i + 1 == steps:
-                kl = kl_divergence(gen_hist, ref_hist)     # syncs the device
+                metrics, hist = mesh.reduce_for_log(metrics, gen_hist)
+                kl = kl_divergence(hist, ref_hist)     # syncs the device
                 gen_hist.zero_()
                 now = time.monotonic()
                 last_metrics = logger.log(
@@ -336,11 +450,13 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
                     step_ms=1e3 * (now - t_last) / (i + 1 - last_i))
                 t_last, last_i = now, i + 1
             if crossed(quality_every, i, i + 1):
+                # every rank probes its (identical) EMA; rank 0 logs
                 q = {k: float(v) for k, v in quality_probe(
                     state.g_ema, _seeded(dev, cfg.train.seed, _PROBE_TAG,
                                          i + 1), probe_cond).items()}
                 logger.log(i + 1, **q)
-                if io.keep_best and q["solvable_frac"] > best_solvable:
+                if (io.keep_best and mesh.any_rank(
+                        q["solvable_frac"] > best_solvable)):
                     best_solvable = q["solvable_frac"]
                     best = save_state(os.path.join(io.out_dir, "ckpt_best"),
                                       state, cfg, i + 1, 1)
@@ -352,16 +468,16 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     finally:
         stop.restore()
         logger.close()
-    preempted = stop.requested and state.step < steps
+    preempted = stopped and state.step < steps
     final = save_state(ckpt_dir, state, cfg, state.step, io.keep_ckpts)
     if preempted and echo:
         print(f"[levelgan_torch] preempted at step {state.step}; checkpoint "
               f"saved to {final}; resume with io.resume=auto")
     # a stop mid-window: the counts since the last log are the newest
     if float(gen_hist.sum()) > 0:
-        kl = kl_divergence(gen_hist, ref_hist)
+        kl = kl_divergence(mesh.reduce_for_log({}, gen_hist)[1], ref_hist)
     out = {"checkpoint": final, "preempted": preempted, "kl": kl,
-           "metrics": last_metrics}
+           "metrics": last_metrics, "rank": rank}
     if best is not None:
         out["best"] = best
     return out

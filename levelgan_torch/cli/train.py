@@ -6,6 +6,10 @@ for ``io.resume`` ('auto' or a checkpoint path); runs
 ``levelgan_torch.api.train`` on the GPU (``--device cpu`` for the plain
 CPU path).  SIGTERM or SIGINT stops the run after the step in flight with
 a checkpoint, and the CLI exits 0 (``--resume auto`` continues it).
+Data parallelism is ``--set dist.dp=N`` (one process a card); over hosts,
+each host runs the CLI with ``dist.coordinator_address``,
+``dist.num_processes`` and its ``dist.process_id``; the host of rank 0
+prints the summary.
 ``--print-config`` prints the resolved config and exits.
 """
 
@@ -62,6 +66,8 @@ def main(argv=None):
         print(cfg.to_json())
         return 0
     result = train(cfg, device=args.device)
+    if result["rank"]:      # another host's ranks: rank 0's host prints
+        return 0
     print(f"[levelgan_torch] {'preempted' if result['preempted'] else 'done'}"
           f": checkpoint={result['checkpoint']} kl={result['kl']:.5f}")
     return 0

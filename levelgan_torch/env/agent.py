@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from levelgan_torch.config import CurriculumConfig, ModelConfig
+from levelgan_torch.dist import mesh
 from levelgan_torch.env.sim import N_ACTIONS, Trajectory, make_obs
 from levelgan_torch.models.generator import Dense
 
@@ -116,10 +117,15 @@ def _a2c_terms(logits, value, actions, returns, active):
 
 
 def _a2c_reduce(pg, vl, ent, active, cur: CurriculumConfig):
-    denom = active.sum().clamp_min(1.0)
-    pg_loss = pg.sum() / denom
-    v_loss = vl.sum() / denom
-    ent_mean = ent.sum() / denom
+    """Sums over the active steps of the global batch: the denominator is
+    summed over the data-parallel ranks, and each rank's sums are scaled by
+    their number, so that the ranks' mean (of the gradients and of the
+    logged terms) is the global ratio of sums."""
+    denom = mesh.global_sum(active.sum()).clamp_min(1.0)
+    n = mesh.world_size()
+    pg_loss = pg.sum() / denom * n
+    v_loss = vl.sum() / denom * n
+    ent_mean = ent.sum() / denom * n
     loss = pg_loss + cur.value_coef * v_loss - cur.entropy_coef * ent_mean
     return loss, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent_mean}
 
@@ -155,7 +161,8 @@ def agent_update(policy: AgentPolicy, opt: torch.optim.Optimizer, onehot,
     """One A2C step of ``policy`` in place; returns (loss, aux)."""
     loss, aux = a2c_loss(policy, onehot, traj, cur)
     params = list(policy.parameters())
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    for p, g in zip(params, mesh.all_reduce_grads(
+            torch.autograd.grad(loss, params))):
         p.grad = g
     opt.step()
     return loss.detach(), {k: v.detach() for k, v in aux.items()}

@@ -45,6 +45,7 @@ from levelgan_torch.bridge import (agent_params_to_flat,
                                    generator_params_from_flat,
                                    generator_params_to_flat)
 from levelgan_torch.config import Config
+from levelgan_torch.dist import mesh
 
 FORMAT_VERSION = 1
 # the curriculum's agents and the prefixes of their Adams
@@ -101,14 +102,28 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
     state; a curriculum state adds ``g_baseline`` and ``agents``
     ({``agent_strong`` / ``agent_weak``: (policy, its Adam)}).  ``keep >
     0`` deletes all but the newest ``keep`` step directories.
+
+    Under data parallelism every rank calls it: rank 0 writes, and no rank
+    returns before the checkpoint is in place.
     """
     if (opt_g is None) != (opt_d is None) or (opt_g is not None
                                               and critic is None):
         raise ValueError("a full-state checkpoint takes the critic and both "
                          "optimizers")
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    try:
+        if mesh.rank() == 0:
+            _write(ckpt_dir, final, generator, cfg, step, critic, g_ema,
+                   opt_g, opt_d, g_baseline, agents, keep)
+    finally:
+        mesh.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, generator, cfg, step, critic, g_ema, opt_g,
+           opt_d, g_baseline, agents, keep) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
-    name = f"step_{step:08d}"
-    final = os.path.join(ckpt_dir, name)
+    name = os.path.basename(final)
     tmp = os.path.join(ckpt_dir, f".tmp_{name}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -145,7 +160,6 @@ def save_checkpoint(ckpt_dir: str, generator: torch.nn.Module, cfg: Config,
     if keep > 0:
         for old in all_checkpoints(ckpt_dir)[:-keep]:
             shutil.rmtree(old, ignore_errors=True)
-    return final
 
 
 def all_checkpoints(ckpt_dir: str) -> list[str]:

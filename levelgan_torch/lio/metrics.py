@@ -15,6 +15,8 @@ import time
 import numpy as np
 import torch
 
+from levelgan_torch.dist import mesh
+
 
 def tile_histogram(ids: torch.Tensor, n_tiles: int) -> torch.Tensor:
     """Tile-type counts [n_tiles] f32 of an id grid batch, on its device."""
@@ -31,14 +33,18 @@ def kl_divergence(p_counts, q_counts) -> float:
 
 
 class MetricsLogger:
-    """Structured JSONL metrics writer: one JSON object per line."""
+    """Structured JSONL metrics writer: one JSON object per line.  Under
+    data parallelism only rank 0 writes (and echoes); every rank gets the
+    record back from ``log``."""
 
     def __init__(self, out_dir: str, filename: str = "metrics.jsonl",
                  echo: bool = True):
-        os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, filename)
-        self._f = open(self.path, "a", buffering=1)
-        self._echo = echo
+        self._f = None
+        if mesh.rank() == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            self._f = open(self.path, "a", buffering=1)
+        self._echo = echo and self._f is not None
         self._t0 = time.monotonic()
 
     def log(self, step: int, **scalars):
@@ -50,7 +56,8 @@ class MetricsLogger:
                                else v)
                 v = v.item() if v.ndim == 0 else v.tolist()
             rec[k] = round(v, 6) if isinstance(v, float) else v
-        self._f.write(json.dumps(rec) + "\n")
+        if self._f is not None:
+            self._f.write(json.dumps(rec) + "\n")
         if self._echo:
             parts = " ".join(f"{k}={v:.4g}" if isinstance(v, float)
                              else f"{k}={v}" for k, v in rec.items()
@@ -59,4 +66,5 @@ class MetricsLogger:
         return rec
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from levelgan_torch.config import GOAL, START
+from levelgan_torch.dist import mesh
 
 STRUCTURAL_TILES = (START, GOAL)
 
@@ -57,13 +58,14 @@ def presence_penalty(fake: torch.Tensor, tiles=STRUCTURAL_TILES,
         flat = chans.reshape(b, hw, -1)                       # [B, HW, |t|]
         wt = flat.amax(dim=1).detach()                        # [B, |t|]
         win = F.one_hot(flat.argmax(dim=1), hw).float().permute(0, 2, 1)
-        wsum = wt.sum(dim=0) + 1e-6
-        m_hard = (win * wt[:, None, :]).sum(dim=0) / wsum     # [HW, |t|]
+        # batch sums over the global batch (data parallelism)
+        wsum = mesh.global_sum(wt.sum(dim=0)) + 1e-6
+        m_hard = mesh.global_sum((win * wt[:, None, :]).sum(dim=0)) / wsum
         q = flat / (flat.sum(dim=1, keepdim=True) + 1e-6)
-        m_soft = (q * wt[:, None, :]).sum(dim=0) / wsum
-        marginal = m_hard + m_soft - m_soft.detach()
+        m_soft = mesh.global_sum((q * wt[:, None, :]).sum(dim=0)) / wsum
+        marginal = m_hard + m_soft - m_soft.detach()          # [HW, |t|]
         simpson = marginal.square().sum(dim=0)                # [|t|]
-        eff = 1.0 / (min(b, hw) * simpson + 1e-9)
+        eff = 1.0 / (min(b * mesh.world_size(), hw) * simpson + 1e-9)
         pen = pen + w_spread * F.relu(min_eff - eff).square().mean()
     return pen
 

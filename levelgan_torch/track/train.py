@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from levelgan_torch.config import Config
+from levelgan_torch.dist import mesh
 from levelgan_torch.env.agent import a2c_loss_from_obs
 from levelgan_torch.ops.grad_penalty import make_gradient_penalty
 from levelgan_torch.ops.gumbel import gumbel_noise
@@ -231,7 +232,8 @@ def make_track_curriculum_step(cfg: Config, cond_scale=None):
         params = list(gen.parameters())
         apply_grads(params, torch.autograd.grad(g_loss, params), state.opt_g)
         state.g_baseline = (cur.g_baseline_decay * state.g_baseline
-                            + (1 - cur.g_baseline_decay) * reward.mean())
+                            + (1 - cur.g_baseline_decay)
+                            * mesh.global_mean(reward))
         update_ema(cfg, state.g_ema, gen, state.step)
         state.step += 1
         metrics = {

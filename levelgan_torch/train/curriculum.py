@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
 from levelgan_torch.data.features import level_features
+from levelgan_torch.dist import mesh
 from levelgan_torch.env.agent import agent_update
 from levelgan_torch.env.sim import N_ACTIONS, EnvParams, rollout
 from levelgan_torch.env.solver import solvable
@@ -159,7 +160,8 @@ def make_curriculum_step(cfg: Config, cond_scale: torch.Tensor | None = None):
             w_sol = cur.w_solvable
             if cur.solvable_target < 1.0:
                 # the ceiling: off once the batch is solvable enough
-                w_sol = w_sol * (sol.mean() < cur.solvable_target).float()
+                w_sol = w_sol * (mesh.global_mean(sol)
+                                 < cur.solvable_target).float()
             level_reward = level_reward + w_sol * sol
         advantage = level_reward - state.g_baseline
         credit = (_visit_credit((traj_s, traj_w), m.level_size)
@@ -181,7 +183,7 @@ def make_curriculum_step(cfg: Config, cond_scale: torch.Tensor | None = None):
         apply_grads(params, torch.autograd.grad(g_loss, params), state.opt_g)
         state.g_baseline = (cur.g_baseline_decay * state.g_baseline
                             + (1 - cur.g_baseline_decay)
-                            * level_reward.mean())
+                            * mesh.global_mean(level_reward))
         update_ema(cfg, state.g_ema, gen, state.step)
         state.step += 1
         metrics = {

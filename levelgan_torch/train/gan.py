@@ -28,6 +28,7 @@ from levelgan_torch.data.augment import augment
 from levelgan_torch.data.codec import decode, encode
 from levelgan_torch.data.features import (batched_features, level_features,
                                           soft_level_features)
+from levelgan_torch.dist import mesh
 from levelgan_torch.lio.metrics import tile_histogram
 from levelgan_torch.models import sample_head
 from levelgan_torch.ops.gumbel import gumbel_noise, tau_schedule
@@ -149,7 +150,9 @@ def _bce(logits: torch.Tensor, target: float) -> torch.Tensor:
 
 
 def apply_grads(params, grads, opt) -> None:
-    for p, g in zip(params, grads):
+    """``opt``'s step on ``grads``, averaged over the data-parallel ranks
+    first (one collective)."""
+    for p, g in zip(params, mesh.all_reduce_grads(grads)):
         p.grad = g
     opt.step()
 

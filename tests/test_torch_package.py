@@ -28,7 +28,7 @@ _MODULES = [
     "levelgan_torch.track.data", "levelgan_torch.track.ops",
     "levelgan_torch.track.models", "levelgan_torch.track.race",
     "levelgan_torch.track.quality", "levelgan_torch.track.render",
-    "levelgan_torch.track.train",
+    "levelgan_torch.track.train", "levelgan_torch.dist.mesh",
     "chip_smoke", "whole_runs",
 ]
 

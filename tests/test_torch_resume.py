@@ -218,7 +218,7 @@ def test_debug_nans_checks_each_step_under_anomaly_mode(tmp_path,
     seen = []
 
     def fake_step(cfg, cond_scale=None):
-        def step_fn(state, batch, generator=None):
+        def step_fn(state, batch, noise=None, generator=None):
             seen.append(torch.is_anomaly_enabled())
             state.step += 1
             bad = float("nan") if state.step == 2 else 1.0

@@ -272,11 +272,8 @@ def test_step_raises_for_later_slices(override, match):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"dist.dp": 2}, "dist.dp"),
     ({"io.render_every": 10}, "render"), ({"io.profile": True}, "profile"),
     ({"io.tensorboard": True}, "tensorboard"),
-    ({"dist.coordinator_address": "10.0.0.1:8476"}, "coordinator_address"),
-    ({"dist.num_processes": 2}, "num_processes"),
 ])
 def test_train_raises_for_later_items(override, match):
     _, cfg = _cfgs()
