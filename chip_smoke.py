@@ -72,7 +72,8 @@ Needs one CUDA card (exits non-zero without one, and without the
    output may be allocated);
 7. the training paths through ``levelgan_torch.cli.train`` (corpus cut to
    256 levels): gumbel_64 for 10 steps (with the quality probe every 5
-   steps and ``io.keep_best``), wgan_gp_32 with
+   steps and ``io.keep_best``, and ``io.render_every`` 5: two renders of
+   the EMA through K1 fwd and the K1L stage), wgan_gp_32 with
    ``model.pallas_gp=fused`` for 30, wgan_gp_32_structural with it for
    10, toy_dcgan_16 (the BCE GAN step; the CLI's default preset, run
    without ``--preset``) for its 100, conditional_32 (the conditional
@@ -117,7 +118,21 @@ Needs one CUDA card (exits non-zero without one, and without the
     checkpoint before step 3) and finished by ``--resume auto`` must equal
     the uninterrupted CLI run; then racetrack_32 for 3 steps three times in
     a fresh process and twice here, every run equal to every other;
-11. print the ``kernels`` JSON line, the card line, and the final
+11. the gates phase: curriculum_16 through the CLI for 10 steps with
+    ``io.render_every`` 5, ``io.profile`` and ``io.tensorboard`` (two
+    renders, a trace naming the port's K1 fwd and K1 bwd kernels, the
+    TensorBoard event files or the notice; launches counted); the skill
+    gap of its checkpoint's agents on 1,024 repaired levels against 1,024
+    corpus levels on the card and through the CPU path with the same
+    injected noise (the four means within SKILL_TOL), one rollout under
+    ``set_sync_debug_mode('error')``, its wall time; a progress GIF over
+    its checkpoints; conditional_32 trained 10 steps, then ``cli/validate
+    --fit-calibration`` (the causality gates, verdicts printed; the
+    sweeps' wall time and levels/s; K1 fwd at its three stages); the
+    native carver's 4,096 levels at 64x64 against the NumPy carver;
+12. the data-parallel phase (``dp``; with two or more cards dp=N);
+13. print the ``kernels`` JSON line (the gates phase's launches under
+    their paths' names), the card line, and the final
     ``{"ok": true, "device": ...}`` line.
 
 ``--phases`` runs a subset (for bring-up); only the full run prints the
@@ -131,6 +146,7 @@ import collections
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -167,8 +183,11 @@ FUSED = ("--set", "model.pallas_gp=fused")
 QUALITY_EVERY = 5            # the gumbel_64 run's quality probe, with keep_best
 QUALITY = ("--set", f"io.quality_every={QUALITY_EVERY}", "--set",
            "io.keep_best=true")
+RENDER_EVERY = 5             # io.render_every of gumbel_64 and the gates run
+RENDER = ("--set", f"io.render_every={RENDER_EVERY}")
 # the training paths: (preset, CLI overrides, steps)
-TRAIN_RUNS = (("gumbel_64", QUALITY, 10), ("wgan_gp_32", FUSED, 30),
+TRAIN_RUNS = (("gumbel_64", QUALITY + RENDER, 10),
+              ("wgan_gp_32", FUSED, 30),
               ("wgan_gp_32_structural", FUSED, 10), ("toy_dcgan_16", (), 100),
               ("conditional_32", (), 10), ("curriculum_16", QUALITY, 10),
               ("curriculum_16_joint", FUSED, 10), ("racetrack_32", (), 10),
@@ -1173,13 +1192,14 @@ def record(rows, config, kern, stage, shape, errs, run, plain, library,
           f"bound_ms={b_ms:.5f} ({b_by})")
 
 
-def train_kernel_parity(cfg, device, rows, b=B_TRAIN):
+def train_kernel_parity(cfg, device, rows, b=B_TRAIN, fwd_only=False):
     """Phase 6: the training-path kernels at ``cfg``'s training shapes
     (B = 64; another ``b`` records them under ``<preset>_b<b>``), each
     against its plain version, with kernel / plain /
     library device times (``queued_ms``) and bounds, K1 forward included
     (the export phase holds it at B = 1024 only).  gumbel_64 also holds K1L
-    bwd at a second shape (up2)."""
+    bwd at a second shape (up2).  ``fwd_only``: the forward kernels alone,
+    for a path that only samples."""
     import torch
     import torch.nn.functional as F
     from levelgan_torch.kernels import upsample_block as k1
@@ -1198,7 +1218,7 @@ def train_kernel_parity(cfg, device, rows, b=B_TRAIN):
         flops = 32.0 * b * h * h * ci * co        # the dx contraction
         wt_lib = w.permute(2, 3, 0, 1).flip(2, 3).to(bf16).contiguous()
         fits = k1.fits(h, h)
-        kernels = ["K1 bwd"] if fits else ["K1L bwd"]
+        kernels = [] if fwd_only else ["K1 bwd"] if fits else ["K1L bwd"]
         if first and name == "up2":
             kernels.append("K1L bwd")    # K1L bwd held at a second shape
         kernels.insert(0, "K1" if fits else "K1L")
@@ -1982,18 +2002,23 @@ def train_path(name, overrides, steps, workdir):
     if any(on_card):
         fail(f"gn_act_bwd_folded ran on CUDA tensors {sum(on_card)} times")
     expect = {k: steps * v for k, v in PER_STEP[name].items()}
-    probes = steps // QUALITY_EVERY if overrides == QUALITY else 0
-    if probes:
-        # each probe is a forward of the EMA generator: one launch a stage
+    probes = steps // QUALITY_EVERY if set(QUALITY) <= set(overrides) else 0
+    renders = steps // RENDER_EVERY if RENDER[1] in overrides else 0
+    if probes or renders:
+        # a probe and a render are each a forward of the EMA generator: one
+        # launch a stage
         from levelgan_torch.kernels import upsample_block as k1
         fits = [k1.fits(h, h) for _, h, _, _ in stage_shapes(preset(name))]
-        expect["K1"] += probes * sum(fits)
-        expect["K1L"] += probes * (len(fits) - sum(fits))
+        expect["K1"] += (probes + renders) * sum(fits)
+        expect["K1L"] += (probes + renders) * (len(fits) - sum(fits))
     print(f"  trained {steps} steps through the CLI in {wall:.3f} s "
           f"(wall, incl. corpus carving and checkpoint); launches {counts}; "
           f"gn_act_bwd_folded on CUDA tensors: {sum(on_card)} times")
     if counts != expect:
         fail(f"training launches {counts} != expected {expect}")
+    if renders:
+        print(f"  io.render_every={RENDER_EVERY}: "
+              f"{check_renders(out, steps)}")
     with open(os.path.join(out, "metrics.jsonl")) as fh:
         recs = [json.loads(s) for s in fh.read().splitlines()]
     lines = [r for r in recs if "d_loss" in r]
@@ -3045,6 +3070,335 @@ def track_repro(device, workdir, steps=REPRO_STEPS):
             fail("racetrack_32 training is not bit-reproducible")
 
 
+# ---- the gates phase: the io hooks, the skill gap, causality, the carver ---
+
+GATES_STEPS = 10             # steps of the gates phase's two CLI runs
+SKILL_N = 1024               # levels a set of the skill gap
+# the skill gap on the card against the CPU path with the same injected
+# noise: the agents' f32 convs sum in another order on the two sides (TF32
+# off), so now and then an action at a near tie flips and that level's
+# rollout goes its own way.  At most SKILL_FLIPS levels of a set may then
+# differ in each agent's return (beyond SKILL_RTOL relative) or in
+# reaching GOAL; each mean may move by what SKILL_FLIPS levels can move it:
+# SKILL_FLIPS / SKILL_N for playability, SKILL_FLIPS times the set's span
+# of returns / SKILL_N for a return
+SKILL_FLIPS = 2
+SKILL_RTOL = 1e-5
+CARVE_N, CARVE_SIZE = 4096, 64   # the native carver's corpus
+CARVE_NUMPY_N = 256          # the NumPy carver's levels, scaled to CARVE_N
+
+
+def check_renders(out: str, steps: int, kind: str = "levels") -> list:
+    """The renders ``io.render_every`` must have written (PNG, or the
+    ``.npz`` beside the name without PIL)."""
+    want = [f"{kind}_{s:08d}.png"
+            for s in range(RENDER_EVERY, steps + 1, RENDER_EVERY)]
+    have = set(os.listdir(out))
+    got = [w if w in have else w + ".npz" for w in want
+           if w in have or w + ".npz" in have]
+    if len(got) != len(want):
+        fail(f"renders in {out}: "
+             f"{sorted(f for f in have if f.startswith(kind))}, want {want}")
+    return got
+
+
+TRACE_CAT = re.compile(r'"cat": "([^"]*)"')
+TRACE_NAME = re.compile(r'"name": ("(?:[^"\\]|\\.)*")')
+
+
+def trace_kernel_names(path: str) -> collections.Counter:
+    """Device kernels of a Chrome trace by name, read a line at a time
+    (with CPU activities a trace of ten steps runs to hundreds of MB): an
+    event's ``cat`` comes before its ``name``, on its line or an earlier
+    one."""
+    names, cat = collections.Counter(), None
+    with open(path) as fh:
+        for line in fh:
+            m = TRACE_CAT.search(line)
+            if m:
+                cat = m.group(1)
+            m = TRACE_NAME.search(line)
+            if m and cat is not None:
+                if cat == "kernel":
+                    names[json.loads(m.group(1))] += 1
+                cat = None
+    return names
+
+
+def gates_cli_run(workdir: str) -> tuple[str, dict]:
+    """curriculum_16 through the CLI for GATES_STEPS with io.render_every,
+    io.profile and io.tensorboard: the renders, a trace naming the port's
+    K1 fwd and K1 bwd kernels, the TensorBoard event files (or the
+    notice), checkpoints at every render for the GIF."""
+    import contextlib
+    import glob
+    import io as _io
+    import torch
+    from levelgan_torch.cli import train as cli_train
+
+    out = os.path.join(workdir, "gates_curriculum_16")
+    buf = _io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_train.main([
+            "--preset", "curriculum_16", *RENDER, "--set", "io.profile=true",
+            "--set", "io.tensorboard=true", "--set",
+            f"io.ckpt_every={RENDER_EVERY}", "--set",
+            f"train.steps={GATES_STEPS}", "--set", "io.log_every=10",
+            "--set", f"data.corpus_size={CORPUS_CUT}", "--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = buf.getvalue()
+    if rc != 0:
+        fail(f"curriculum_16 with the io hooks returned {rc}:\n{text}")
+    renders = GATES_STEPS // RENDER_EVERY
+    expect = {k: GATES_STEPS * v for k, v in PER_STEP["curriculum_16"].items()}
+    expect["K1"] += renders * 2          # a render: the EMA's two stages
+    if counts != expect:
+        fail(f"curriculum_16 with the io hooks: launches {counts} != "
+             f"{expect}")
+    got = check_renders(out, GATES_STEPS)
+    trace = os.path.join(out, "profile", "trace.json")
+    if not os.path.exists(trace):
+        fail(f"io.profile wrote no {trace}")
+    names = trace_kernel_names(trace)
+    trace_bytes = os.path.getsize(trace)
+    os.remove(trace)
+    ours = {k: sum(n for name, n in names.items() if k in name)
+            for k in ("upsample_block_fwd_kernel", "k1_bwd_")}
+    if not all(ours.values()):
+        fail(f"the trace names none of {[k for k, v in ours.items() if not v]}"
+             f" among its {sum(names.values())} device kernels")
+    events = glob.glob(os.path.join(out, "tb", "events.out.tfevents.*"))
+    notice = "tensorboard requested but not installed" in text
+    if not events and not notice:
+        fail("io.tensorboard wrote no event file and printed no notice")
+    print(f"  curriculum_16 {GATES_STEPS} steps with io.render_every="
+          f"{RENDER_EVERY}, io.profile, io.tensorboard: {wall:.3f} s wall; "
+          f"launches {counts}; renders {got}; trace "
+          f"{trace_bytes} bytes, {sum(names.values())} device "
+          f"kernels, of them {ours}; "
+          + (f"TensorBoard event files {len(events)}" if events else
+             "tensorboard not installed: the JSONL notice was printed"))
+    return out, counts
+
+
+def gates_skill_gap(out: str, device) -> dict:
+    """The skill gap of the curriculum checkpoint's agents on SKILL_N
+    repaired levels of its EMA and as many corpus levels, on the card and
+    through the CPU path with the same injected noise: level by level
+    (``play_levels``) and the report's means; one rollout under
+    ``set_sync_debug_mode('error')``; the card's wall time."""
+    import torch
+    from levelgan_torch.api import make_dataset
+    from levelgan_torch.config import Config
+    from levelgan_torch.export import generate
+    from levelgan_torch.lio.checkpoint import load_checkpoint, load_manifest
+    from levelgan_torch.lio.skillgap import (draw_rollout_noise, play_levels,
+                                             score_levels, skill_gap_report)
+    from levelgan_torch.train.state import create_state
+
+    ckpt = os.path.join(out, "ckpt", f"step_{GATES_STEPS:08d}")
+    cfg = Config.from_dict(load_manifest(ckpt)["config"])
+    on = {"card": device, "cpu": torch.device("cpu")}
+    states = {k: load_checkpoint(ckpt, create_state(cfg, d))[0]
+              for k, d in on.items()}
+    reset_counts()
+    levels = generate(cfg, states["card"].g_ema, SKILL_N, seed=0,
+                      repair=True, device=device)
+    counts = read_counts()
+    if not counts["K1"]:
+        fail(f"the skill gap's levels launched no K1 fwd: {counts}")
+    corpus = make_dataset(cfg.override(**{
+        "data.corpus_size": SKILL_N})).levels[:SKILL_N]
+    noise = draw_rollout_noise(cfg, SKILL_N, "cpu", seed=0)
+    sets = {"generated": levels, "corpus": corpus}
+    per = {k: {part: {q: v.double().cpu() for q, v in play_levels(
+        cfg, states[k], torch.from_numpy(x).to(d),
+        {a: v.to(d) for a, v in noise.items()}).items()}
+        for part, x in sets.items()} for k, d in on.items()}
+    got = {k: skill_gap_report(cfg, states[k], levels, corpus, device=d,
+                               noise=noise)
+           for k, d in on.items()}
+    flips, worst = {}, {}
+    for part in sets:
+        for q in ("return_strong", "return_weak", "playable_strong",
+                  "playable_weak"):
+            a, b = per["card"][part][q], per["cpu"][part][q]
+            off = int(((a - b).abs() > SKILL_RTOL * (1 + b.abs())).sum())
+            flips[f"{part} {q}"] = off
+            if off > SKILL_FLIPS:
+                fail(f"skill gap {part} {q}: {off} of {SKILL_N} levels "
+                     f"differ between card and CPU (> {SKILL_FLIPS})")
+            span = 1.0 if q.startswith("playable") else float(b.max() - b.min())
+            tol = SKILL_FLIPS * span / SKILL_N + SKILL_RTOL * (
+                1 + abs(got["cpu"][part][q]))
+            err = abs(got["card"][part][q] - got["cpu"][part][q])
+            worst[f"{part} {q}"] = f"{err:.3g} (tol {tol:.3g})"
+            if err > tol:
+                fail(f"skill gap {part} {q}: card {got['card'][part][q]} "
+                     f"cpu {got['cpu'][part][q]} (|diff| > {tol:.4g})")
+    data = torch.from_numpy(corpus).to(device)
+    on_card = {k: v.to(device) for k, v in noise.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        score_levels(cfg, states["card"], data, on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    walls = []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        skill_gap_report(cfg, states["card"], levels, corpus, seed=seed,
+                         device=device)
+        walls.append(time.perf_counter() - t0)
+    sg = got["card"]
+    print(f"  skill gap, {SKILL_N} repaired levels of the step-"
+          f"{GATES_STEPS} EMA against {SKILL_N} corpus levels: separation "
+          f"{sg['separation']:.5g}, playable_separation "
+          f"{sg['playable_separation']:.5g}; generated "
+          + " ".join(f"{k}={v:.5g}" for k, v in sg["generated"].items())
+          + "; corpus " + " ".join(f"{k}={v:.5g}" for k, v in
+                                   sg["corpus"].items())
+          + f"; card vs CPU (same noise): levels that differ {flips} (at "
+          f"most {SKILL_FLIPS} a set and agent), |diff| of the means {worst};"
+          f" one rollout under sync debug mode 'error': "
+          f"no sync; skill_gap_report wall (drawn noise, warm) "
+          f"{walls[-1] * 1e3:.1f} ms (first {walls[0] * 1e3:.1f} ms); the "
+          f"levels' launches {counts}")
+    return counts
+
+
+def gates_progress_gif(out: str) -> dict:
+    """``cli/progress_gif`` over the curriculum run's checkpoints: one
+    frame a checkpoint, sampled on the card."""
+    from levelgan_torch.cli import progress_gif
+    from levelgan_torch.lio.checkpoint import all_checkpoints
+
+    ckpts = all_checkpoints(os.path.join(out, "ckpt"))
+    gif = os.path.join(out, "progress.gif")
+    reset_counts()
+    t0 = time.perf_counter()
+    if progress_gif.main([out, "--out", gif]) != 0:
+        fail("progress_gif returned non-zero")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if not counts["K1"]:
+        fail(f"progress_gif launched no K1 fwd: {counts}")
+    try:
+        from PIL import Image
+        frames = Image.open(gif).n_frames
+    except ImportError:
+        import numpy as np
+        frames = len(np.load(gif + ".npz")["frames"])
+    if frames != len(ckpts):
+        fail(f"progress GIF has {frames} frames for {len(ckpts)} checkpoints")
+    print(f"  progress GIF: {frames} frames for {len(ckpts)} checkpoints in "
+          f"{wall:.3f} s wall; launches {counts}")
+    return counts
+
+
+def gates_causality(workdir: str) -> dict:
+    """conditional_32 trained GATES_STEPS through the CLI, then
+    ``cli/validate --fit-calibration``: the causality gates with a fitted
+    calibration (random-ish weights: the verdicts are printed, not
+    required); the sweep's export must run K1 fwd at all three stages."""
+    import contextlib
+    import io
+    import torch
+    from levelgan_torch.cli import train as cli_train
+    from levelgan_torch.cli import validate
+
+    out = os.path.join(workdir, "gates_conditional_32")
+    if cli_train.main(["--preset", "conditional_32", "--set",
+                       f"train.steps={GATES_STEPS}", "--set",
+                       "io.log_every=10", "--set",
+                       f"data.corpus_size={CORPUS_CUT}", "--out", out]) != 0:
+        fail("conditional_32 training for the causality gates failed")
+    path = os.path.join(out, "validate.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # the report: in path
+        rc = validate.main(["--ckpt", out, "--fit-calibration", "--out",
+                            path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(path) as fh:
+        report = json.load(fh)
+    gates, cau = report["gates"], report.get("causality", {})
+    missing = [g for g in ("causality", "causality_calibrated")
+               if g not in gates]
+    if missing or not cau.get("calibration_written"):
+        fail(f"validate --fit-calibration: gates {sorted(gates)}, "
+             f"calibration {cau.get('calibration_written')}")
+    if not counts["K1"] or counts["K1"] % 3 or counts["K1L"]:
+        fail(f"the causality sweeps' launches {counts}: K1 fwd at the three "
+             "conditional_32 stages only")
+    print(f"  validate --fit-calibration on conditional_32 (step "
+          f"{GATES_STEPS}): rc {rc}, {wall:.3f} s wall; causality "
+          f"{gates['causality']['passed']} (min r "
+          f"{gates['causality']['min_pearson_r']}), causality_calibrated "
+          f"{gates['causality_calibrated']['passed']} (slopes "
+          f"{gates['causality_calibrated']['slopes']}); the sweeps "
+          f"{cau['wall_s']:.3f} s wall, the export inside them "
+          f"{cau['export_levels_per_s']:.1f} levels/s at "
+          f"{cau['n_per_point']} a point; launches {counts}")
+    return counts, cau["n_per_point"]
+
+
+def gates_carver() -> None:
+    """The native carver (CARVE_N levels at CARVE_SIZE) against the NumPy
+    carver on this host (CARVE_NUMPY_N levels, scaled)."""
+    import numpy as np
+    from levelgan_torch.config import GOAL, START
+    from levelgan_torch.data.dataset import synthetic_corpus
+    from levelgan_torch.native.build import synthetic_corpus_native
+
+    synthetic_corpus_native(4, CARVE_SIZE)          # the build
+    t0 = time.perf_counter()
+    levels = synthetic_corpus_native(CARVE_N, CARVE_SIZE, seed=1234)
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synthetic_corpus(CARVE_NUMPY_N, CARVE_SIZE, seed=1234)
+    t_np = time.perf_counter() - t0
+    one = [(levels == t).sum(axis=(1, 2)) for t in (START, GOAL)]
+    if levels.shape != (CARVE_N, CARVE_SIZE, CARVE_SIZE) or not all(
+            (c == 1).all() for c in one):
+        fail(f"native corpus {levels.shape}: not one START and one GOAL "
+             "a level")
+    print(f"  carver at {CARVE_SIZE}x{CARVE_SIZE}: native {CARVE_N} levels "
+          f"{t_c:.3f} s; NumPy {CARVE_NUMPY_N} levels {t_np:.3f} s "
+          f"({t_np * CARVE_N / CARVE_NUMPY_N:.1f} s scaled to {CARVE_N}); "
+          f"native / NumPy per level {t_c / CARVE_N:.3e} / "
+          f"{t_np / CARVE_NUMPY_N:.3e} s")
+
+
+def gates_phase(device, workdir, rows) -> dict:
+    """The gates phase: each path's launches by name.  The forward kernels
+    are held against their plain versions at the batches these paths give
+    them that no other phase runs (into ``rows``): curriculum_16 at the
+    skill gap's SKILL_N levels, conditional_32 at the sweep's levels a
+    point."""
+    from levelgan_torch.config import preset
+
+    out, counts = gates_cli_run(workdir)
+    runs = {"curriculum_16 io hooks": counts}
+    runs["skill gap levels"] = gates_skill_gap(out, device)
+    runs["progress GIF"] = gates_progress_gif(out)
+    runs["causality sweeps"], n_point = gates_causality(workdir)
+    for name, b in (("curriculum_16", min(SKILL_N, B)),
+                    ("conditional_32", min(n_point, B))):
+        print(f"forward kernel parity and timing ({name}, B={b}, the gates "
+              "path's batch):")
+        train_kernel_parity(preset(name), device, rows, b=b, fwd_only=True)
+    gates_carver()
+    return runs
+
+
 # ---- the dp phase: data parallelism through mesh.launch -------------------
 
 DP_PRESETS = ("curriculum_16", "gumbel_64")
@@ -3394,7 +3748,8 @@ def dp_phase(device, workdir, rows, train_counts):
 
 
 
-def kernels_line(records, counts, train_records, train_counts):
+def kernels_line(records, counts, train_records, train_counts,
+                 gate_counts=None):
     """One entry per kernel.  The forward kernels' times are summed over
     the stages they serve on the export path (per 1024-level batch), with
     that path's launches.  The training kernels' times are summed over the
@@ -3404,7 +3759,8 @@ def kernels_line(records, counts, train_records, train_counts):
     also held at another configuration's shapes, ``at_<configuration>``
     holds the same sums there (for K1 forward ``at_gumbel_64_training``
     too: its B = 64 shapes beside the export entry).  Errors are the max
-    over those stages."""
+    over those stages.  The gates phase's paths (``gate_counts``) add
+    their launches, each under its own name."""
     meta = {
         "K1": ("upsample_block_fwd", "levelgan_torch/csrc/upsample_block.cu",
                "levelgan/kernels/upsample_block.py:304"),
@@ -3459,6 +3815,10 @@ def kernels_line(records, counts, train_records, train_counts):
             pool += [{**r, "config": r["config"] + "_training"}
                      if r["config"] == home else r
                      for r in train_records if r["kernel"] == kern]
+        for run, c in (gate_counts or {}).items():
+            if c[kern]:
+                by_run[run] = c[kern]
+                launches += c[kern]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": repl, "launches": launches,
                  **sums([r for r in pool if r.get("config", home) == home]),
@@ -3468,17 +3828,18 @@ def kernels_line(records, counts, train_records, train_counts):
                  "path": "training" if train else "export",
                  "launches_by_run": by_run}
         for other in sorted({r.get("config", home) for r in pool} - {home}):
+            rs = [r for r in pool if r.get("config") == other]
             entry[f"at_{other}"] = {
-                **sums([r for r in pool if r.get("config") == other]),
-                "per": f"one launch per stage of a {other} training step "
-                       "(B = 64), device time"}
+                **sums(rs), "per": f"one launch per stage at {other}'s "
+                                   f"shapes (B = {rs[0]['shape'][0]}), "
+                                   "device time"}
         out.append(entry)
     return {"kernels": out}
 
 
 PHASES = ("build", "parity", "export", "export_repair", "export_cond",
           "export_profile", "train_parity", "k2_core", "train", "train_check",
-          "train_profile", "repro", "dp")
+          "train_profile", "repro", "gates", "dp")
 
 
 def main(argv=()) -> int:
@@ -3537,7 +3898,7 @@ def main(argv=()) -> int:
     # the third: the curriculum's path through the 16x16 critic
     cfg16 = preset("curriculum_16")
     records = counts = None
-    train_records, train_counts = [], {}
+    train_records, train_counts, gate_counts = [], {}, {}
     if phase("parity"):
         print("forward kernel parity and timing (gumbel_64 stages, B=1024, "
               "bf16):")
@@ -3617,6 +3978,11 @@ def main(argv=()) -> int:
             print("reproducibility: racetrack_32 trained in a fresh process "
                   "and here from one seed")
             track_repro(device, workdir)
+        if phase("gates"):
+            print("gates: curriculum_16 with io.render_every / io.profile / "
+                  "io.tensorboard, the skill gap, the progress GIF, the "
+                  "causality gates (conditional_32) and the native carver")
+            gate_counts.update(gates_phase(device, workdir, train_records))
         if phase("dp"):
             print("data parallelism: the path's kernels at a rank's batch, "
                   "the launcher at world size 1, and dp=N with N cards")
@@ -3629,7 +3995,7 @@ def main(argv=()) -> int:
               "full run")
         return 0
     print(json.dumps(kernels_line(records, counts, train_records,
-                                  train_counts)))
+                                  train_counts, gate_counts)))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

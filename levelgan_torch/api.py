@@ -64,9 +64,18 @@ steps the JAX package scans per dispatch) has no meaning here and is
 ignored, as are ``io.compile_cache`` (XLA's cache) and ``data.feed`` (the
 corpus is always on the device).
 
-Not in this slice, each raising ``NotImplementedError`` rather than being
-skipped: ``io.render_every`` (PNG renders), ``io.profile`` and
-``io.tensorboard``.
+On rank 0 only: ``io.render_every`` writes 16 levels (or tracks) of the
+EMA generator, sampled at ``seed=step`` (condition 0.25 in every feature
+of a conditional model), as ``levels_<step>.png`` (``tracks_<step>.png``)
+in ``io.out_dir`` (a ``.npz`` beside the name where PIL is absent).
+``io.profile`` traces the JAX package's window at one step a dispatch
+(from the second step of the run to its thirteenth) with
+``torch.profiler``, CPU and CUDA activities, into
+``<io.profile_dir or out_dir/profile>/trace.json`` (a Chrome trace); a
+run that ends, fails or is stopped inside the window writes the trace
+on its way out.  ``io.tensorboard`` gives every logged scalar and the
+probe's to a ``SummaryWriter`` at ``out_dir/tb`` (JSONL only, with a
+notice, where ``tensorboard`` is not installed).
 """
 
 from __future__ import annotations
@@ -104,22 +113,19 @@ from levelgan_torch.train.wgan_gp import draw_step_noise, make_wgan_gp_step
 
 _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 _PROBE_TAG = 0x9B0BE         # the quality probe's stream
+# io.profile's window, the JAX package's at one step a dispatch: the trace
+# starts once this many steps of the run are done and stops at the second
+PROFILE_WINDOW = (1, 13)
+RENDER_N = 16                # levels (or tracks) a render
 _STEPS = {"gan": make_gan_step, "wgan_gp": make_wgan_gp_step,
           "curriculum": make_curriculum_step}
 _TRACK_STEPS = {"wgan_gp": make_track_wgan_step,
                 "curriculum": make_track_curriculum_step}
 
 
-def _not_ported(cfg: Config) -> None:
-    io, t, m = cfg.io, cfg.train, cfg.model
-    later = [
-        (io.render_every, "io.render_every (PNG renders during training)"),
-        (io.profile, "io.profile (a profiler trace of the run)"),
-        (io.tensorboard, "io.tensorboard (TensorBoard scalars)"),
-    ]
-    for on, why in later:
-        if on:
-            raise NotImplementedError(f"not ported yet: {why}")
+def _check_loss(cfg: Config) -> None:
+    """The refusals of a family and loss with no step."""
+    t, m = cfg.train, cfg.model
     if m.family == "track" and t.loss not in _TRACK_STEPS:
         raise ValueError(f"track family supports wgan_gp/curriculum, "
                          f"not '{t.loss}'")
@@ -347,7 +353,7 @@ def train(cfg: Config, *, device=None, echo: bool = True) -> dict:
     metrics, rank}`` (and ``best``, the ``ckpt_best/`` checkpoint, under
     ``io.keep_best``).  With more than one rank (``dist``), rank 0's on
     the host that holds it, else this host's first rank's."""
-    _not_ported(cfg)
+    _check_loss(cfg)
     dev = resolve_device(device)
     if mesh.launched():
         if not mesh.active():
@@ -380,6 +386,93 @@ def _check_mesh(cfg: Config, world: int) -> None:
             "not ported yet: model.critic_mbstd under data parallelism (a "
             "batch statistic inside the critic and the GP's double "
             "backward; it would need a differentiable all-gather)")
+
+
+def render_samples(cfg: Config, gen, step: int, dev) -> str:
+    """``io.render_every``: ``RENDER_N`` samples of ``gen`` at
+    ``seed=step`` drawn as one image in ``io.out_dir``; returns its
+    path."""
+    from levelgan_torch.cli.export import write_png
+    from levelgan_torch.export import generate
+    from levelgan_torch.track.render import write_track_png
+
+    m = cfg.model
+    cond = np.full(m.cond_dim, 0.25, np.float32) if m.cond_dim else None
+    samples = generate(cfg, gen, RENDER_N, batch_size=RENDER_N, seed=step,
+                       cond=cond, device=dev)
+    kind = "tracks" if m.family == "track" else "levels"
+    path = os.path.join(cfg.io.out_dir, f"{kind}_{step:08d}.png")
+    (write_track_png if m.family == "track" else write_png)(path, samples,
+                                                           cols=4)
+    return path
+
+
+def _tensorboard(cfg: Config, echo: bool):
+    """``io.tensorboard``'s writer at ``out_dir/tb`` on rank 0, else
+    None."""
+    if not cfg.io.tensorboard or mesh.rank() != 0:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        if echo:
+            print("[levelgan_torch] tensorboard requested but not "
+                  "installed; JSONL metrics only")
+        return None
+    return SummaryWriter(os.path.join(cfg.io.out_dir, "tb"))
+
+
+def _add_scalars(tb, step: int, record: dict) -> None:
+    """A logged record's numbers (not its step) as TensorBoard scalars."""
+    if tb is not None:
+        for name, v in record.items():
+            if isinstance(v, (int, float)) and name != "step":
+                tb.add_scalar(name, v, step)
+
+
+class _ProfileWindow:
+    """``io.profile`` on rank 0: a ``torch.profiler`` trace from step
+    ``start + PROFILE_WINDOW[0]`` done to step ``start +
+    PROFILE_WINDOW[1]`` done, exported as a Chrome trace."""
+
+    def __init__(self, cfg: Config, start: int, dev: torch.device):
+        self.on = cfg.io.profile and mesh.rank() == 0
+        self.first, self.last = (start + k for k in PROFILE_WINDOW)
+        self.path = os.path.join(
+            cfg.io.profile_dir or os.path.join(cfg.io.out_dir, "profile"),
+            "trace.json")
+        self._cuda = dev.type == "cuda"
+        self._prof = None
+
+    def before_step(self, done: int) -> None:
+        if self.on and self._prof is None and done >= self.first:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self._cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+
+    def span(self, step: int):
+        """A ``step_<step>`` range in the trace around one step (nothing
+        outside the window)."""
+        if self._prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"step_{step:08d}")
+
+    def after_step(self, done: int) -> None:
+        if self._prof is not None and done >= self.last:
+            self.close()
+
+    def close(self) -> None:
+        """Stop and write the trace (once; a no-op outside the window)."""
+        if self._prof is None:
+            return
+        if self._cuda:
+            torch.cuda.synchronize()
+        prof, self._prof, self.on = self._prof, None, False
+        prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        prof.export_chrome_trace(self.path)
 
 
 def _train(cfg: Config, dev: torch.device, echo: bool) -> dict:
@@ -429,14 +522,19 @@ def _train(cfg: Config, dev: torch.device, echo: bool) -> dict:
     launcher = mesh.launcher_pid()
     stop = _StopRequest() if launcher is None else _StopRequest(launcher)
     stopped = False
+    tb = _tensorboard(cfg, echo)
+    profile = _ProfileWindow(cfg, start, dev)
+    render = io.render_every if rank == 0 else 0
     try:
         for i in range(start, steps):
             if mesh.any_rank(stop.requested):
                 stopped = True
                 break
-            batch, noise = step_inputs(cfg, corpus, i, dev)
-            with step_mode(io.debug_nans):
-                state, metrics = step_fn(state, batch, noise=noise)
+            profile.before_step(i)
+            with profile.span(i + 1):
+                batch, noise = step_inputs(cfg, corpus, i, dev)
+                with step_mode(io.debug_nans):
+                    state, metrics = step_fn(state, batch, noise=noise)
             if io.debug_nans:
                 _check_finite(i + 1, metrics)
             gen_hist += metrics.pop("gen_hist")
@@ -449,12 +547,14 @@ def _train(cfg: Config, dev: torch.device, echo: bool) -> dict:
                     i + 1, **metrics, kl=kl,
                     step_ms=1e3 * (now - t_last) / (i + 1 - last_i))
                 t_last, last_i = now, i + 1
+                _add_scalars(tb, i + 1, last_metrics)
             if crossed(quality_every, i, i + 1):
                 # every rank probes its (identical) EMA; rank 0 logs
                 q = {k: float(v) for k, v in quality_probe(
                     state.g_ema, _seeded(dev, cfg.train.seed, _PROBE_TAG,
                                          i + 1), probe_cond).items()}
                 logger.log(i + 1, **q)
+                _add_scalars(tb, i + 1, q)
                 if (io.keep_best and mesh.any_rank(
                         q["solvable_frac"] > best_solvable)):
                     best_solvable = q["solvable_frac"]
@@ -463,10 +563,17 @@ def _train(cfg: Config, dev: torch.device, echo: bool) -> dict:
                     if echo:
                         print(f"[levelgan_torch] new best solvable_frac="
                               f"{best_solvable:.3f} -> {best}")
+            if crossed(render, i, i + 1):
+                render_samples(cfg, state.g_ema, i + 1, dev)
             if crossed(io.ckpt_every, i, i + 1) and i + 1 < steps:
                 save_state(ckpt_dir, state, cfg, i + 1, io.keep_ckpts)
+            profile.after_step(i + 1)
     finally:
+        # on every way out: the trace, the scalars, the handlers
+        profile.close()
         stop.restore()
+        if tb is not None:
+            tb.close()
         logger.close()
     preempted = stopped and state.step < steps
     final = save_state(ckpt_dir, state, cfg, state.step, io.keep_ckpts)

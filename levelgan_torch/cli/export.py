@@ -39,9 +39,10 @@ PALETTE = np.array([
 ], dtype=np.uint8)
 
 
-def load_generator(ckpt: str) -> tuple[Config, dict]:
-    """(Config, generator params) from a step dir, or the newest readable
-    step under a ckpt parent (or a run dir's ``ckpt/``)."""
+def load_generator(ckpt: str) -> tuple[str, Config, dict]:
+    """(the step dir read, its Config, generator params) from a step dir,
+    or the newest readable step under a ckpt parent (or a run dir's
+    ``ckpt/``)."""
     if os.path.exists(os.path.join(ckpt, "manifest.json")):
         candidates = [ckpt]
     else:
@@ -55,7 +56,7 @@ def load_generator(ckpt: str) -> tuple[Config, dict]:
     for path in reversed(candidates):
         try:
             params, cfg = load_generator_params(path)
-            return cfg, params
+            return path, cfg, params
         except Exception as e:  # corrupt/truncated step: try the previous one
             errors.append(f"{path}: {e}")
             print(f"[levelgan_torch] WARNING: skipping unreadable checkpoint "
@@ -138,7 +139,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg, params = load_generator(args.ckpt)
+    _, cfg, params = load_generator(args.ckpt)
     track = cfg.model.family == "track"
     if track and not args.out.endswith((".npz", ".png")):
         raise SystemExit("track export supports .npz or .png")

@@ -8,8 +8,10 @@ so both packages build bit-identical corpora from one seed.  Corpus
 generation is host NumPy and runs once; the trainer stages the uint8 array
 on the device (``api.train``).
 
-``synthetic_native`` (the JAX package's C carver, ``levelgan/native/
-corpusgen.c``) raises ``NotImplementedError`` until its copy lands.
+``synthetic_native`` is the C carver (``native/corpusgen.c``, a copy of
+the JAX package's): its own random stream, so a different corpus from the
+same seed, equal bit for bit to the JAX package's native corpus.  Where it
+cannot be built it raises with the compiler's message.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from levelgan_torch.config import COIN, EMPTY, GOAL, HAZARD, START, WALL
+from levelgan_torch.native import build as native_build
 
 SAND, ICE = 6, 7
 
@@ -117,14 +120,12 @@ class LevelDataset:
 
     @classmethod
     def from_config(cls, data_cfg, model_cfg, seed: int = 0) -> "LevelDataset":
-        if data_cfg.corpus == "synthetic_native":
-            raise NotImplementedError(
-                "data.corpus='synthetic_native' needs the C carver "
-                "(levelgan/native/corpusgen.c), not copied into the port yet; "
-                "'synthetic' is the NumPy carver, a distinct random stream "
-                "and so a different corpus from the same seed")
-        if data_cfg.corpus == "synthetic":
-            levels = synthetic_corpus(
+        if data_cfg.corpus in ("synthetic", "synthetic_native"):
+            # the C carver raises if it cannot be built: no NumPy fallback,
+            # whose stream would give another corpus from the same seed
+            carve = (synthetic_corpus if data_cfg.corpus == "synthetic"
+                     else native_build.synthetic_corpus_native)
+            levels = carve(
                 data_cfg.corpus_size, model_cfg.level_size,
                 seed=data_cfg.corpus_seed, wall_density=data_cfg.wall_density,
                 hazard_rate=data_cfg.hazard_rate, coin_rate=data_cfg.coin_rate,

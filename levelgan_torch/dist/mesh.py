@@ -28,7 +28,10 @@ card before anything touches it, joins the group and runs the function.
 A process that a launcher such as torchrun started (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` in its environment)
 joins its group instead (``join_from_env``).  The launching process
-forwards SIGTERM / SIGINT to its ranks; a second signal kills them.
+forwards SIGTERM / SIGINT to its ranks; a second signal kills them.  A
+launch may be given a deadline, past which its ranks are killed and it
+raises ``TimeoutError``; the group is joined with ``GROUP_TIMEOUT_S``, so
+a collective that a stalled rank never enters raises instead of blocking.
 
 Not ported: the JAX package's ``tp`` axis and ``tp_param_sharding`` (the
 tensor-parallel hook has no config entry point).
@@ -36,12 +39,14 @@ tensor-parallel hook has no config entry point).
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
 import shutil
 import signal
 import tempfile
 import threading
+import time
 from dataclasses import dataclass
 
 import torch
@@ -52,6 +57,7 @@ TIME_MAJOR = ("rollout_strong", "rollout_weak")
 _ENV_RANK = ("GROUP_RANK", "NODE_RANK")   # a launcher's host index
 _host_group = None                        # gloo group of this rank's process
 _launcher = None                          # pid of the process that launched it
+GROUP_TIMEOUT_S = 600.0   # a rendezvous or collective waits at most this
 
 
 @dataclass(frozen=True)
@@ -249,19 +255,24 @@ def same_on_every_rank(tensors: dict) -> list[str]:
     return [k for k, d in zip(names, (lo != hi).tolist()) if d]
 
 
-def _join(plan: Plan, local_rank: int, init_method: str) -> None:
+def _join(plan: Plan, local_rank: int, init_method: str,
+          threads: int | None = None) -> None:
+    """Join the group as ``local_rank``; on the CPU with ``threads``
+    intra-op threads (default: this process's share of its cores)."""
     global _host_group
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
     kw = {}
     if plan.device_type == "cuda":
         torch.cuda.set_device(local_rank)       # before any kernel loads
         kw["device_id"] = torch.device("cuda", local_rank)
     else:   # the host's cores shared between its ranks
-        torch.set_num_threads(max(1, torch.get_num_threads() // plan.local))
+        torch.set_num_threads(
+            threads or max(1, torch.get_num_threads() // plan.local))
     dist.init_process_group(
         "nccl" if plan.device_type == "cuda" else "gloo",
         init_method=init_method, world_size=plan.world,
-        rank=plan.first_rank + local_rank, **kw)
-    _host_group = (dist.new_group(backend="gloo")
+        rank=plan.first_rank + local_rank, timeout=timeout, **kw)
+    _host_group = (dist.new_group(backend="gloo", timeout=timeout)
                    if plan.device_type == "cuda" else dist.group.WORLD)
 
 
@@ -284,10 +295,10 @@ def launched() -> bool:
 
 
 def _worker(local_rank, fn, args, kwargs, plan, init_method, out_dir,
-            parent):
+            parent, threads):
     global _launcher
     _launcher = parent
-    _join(plan, local_rank, init_method)
+    _join(plan, local_rank, init_method, threads)
     try:
         result = fn(*args, **kwargs)
         with open(os.path.join(out_dir, f"result_{local_rank}.pkl"),
@@ -297,18 +308,24 @@ def _worker(local_rank, fn, args, kwargs, plan, init_method, out_dir,
         dist.destroy_process_group()
 
 
-def launch(fn, args: tuple, kwargs: dict, plan: Plan) -> list:
+def launch(fn, args: tuple, kwargs: dict, plan: Plan,
+           timeout: float | None = None) -> list:
     """Run ``fn(*args, **kwargs)`` on each of this process's ``plan.local``
     ranks; returns their results in local-rank order.  A rank that fails
     stops the others and raises here.  SIGTERM / SIGINT (main thread) are
     forwarded to the ranks as SIGTERM; a second one kills them and is
-    re-raised."""
+    re-raised.  ``timeout`` (seconds, None: none) is the launch's deadline:
+    past it the ranks still alive are killed and ``TimeoutError`` names
+    them.  CPU ranks share this process's intra-op threads."""
     import torch.multiprocessing as mp
 
+    deadline = None if timeout is None else time.monotonic() + timeout
     work = tempfile.mkdtemp(prefix="levelgan_torch_dp_")
     init = plan.init_method or "file://" + os.path.join(work, "store")
+    threads = max(1, torch.get_num_threads() // plan.local)
     ctx = mp.start_processes(
-        _worker, args=(fn, args, kwargs, plan, init, work, os.getpid()),
+        _worker, args=(fn, args, kwargs, plan, init, work, os.getpid(),
+                       threads),
         nprocs=plan.local, join=False, start_method="spawn")
     old, hits = {}, []
 
@@ -328,7 +345,13 @@ def launch(fn, args: tuple, kwargs: dict, plan: Plan) -> list:
             old[s] = signal.signal(s, forward)
     try:
         while not ctx.join(timeout=1.0, grace_period=5.0):
-            pass
+            if deadline is not None and time.monotonic() > deadline:
+                alive = [plan.first_rank + i
+                         for i, p in enumerate(ctx.processes)
+                         if p.is_alive()]
+                raise TimeoutError(
+                    f"ranks {alive} still running {timeout:g} s after "
+                    "their launch; killed")
         out = []
         for i in range(plan.local):
             with open(os.path.join(work, f"result_{i}.pkl"), "rb") as fh:

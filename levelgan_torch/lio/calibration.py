@@ -6,8 +6,10 @@ generator obeys its condition in direction but at attenuated magnitude;
 the calibration stores, per feature dim, a measured (internal, realized)
 response curve, and ``apply_calibration`` maps a requested feature vector
 through the inverse curve (clamped to the achievable band).  It is stored
-as ``cond_calibration.json`` next to the checkpoint and applied by
-``python -m levelgan_torch.cli.export --calibrated``.
+as ``cond_calibration.json`` next to the checkpoint, fitted by
+``python -m levelgan_torch.cli.validate --fit-calibration``
+(``lio/causality.py``) and applied by ``python -m
+levelgan_torch.cli.export --calibrated``.
 """
 
 from __future__ import annotations
@@ -87,7 +89,7 @@ def load_calibration(ckpt_dir: str) -> dict:
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"no {CAL_FILENAME} under {ckpt_dir!r} — fit one with "
-            "`python -m tools.eval_cond --ckpt <dir> --fit-calibration` "
-            "or fit_from_sweeps + save_calibration")
+            "`python -m levelgan_torch.cli.validate --ckpt <dir> "
+            "--fit-calibration` or fit_from_sweeps + save_calibration")
     with open(path) as f:
         return json.load(f)

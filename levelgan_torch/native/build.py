@@ -1,12 +1,15 @@
 """Build and bind the port's host C routines (``levelgan_torch/native``).
 
-``unpack.c`` is compiled with the system C compiler (``cc -O3 -shared
--fPIC``) at first use into ``levelgan_torch/_build/`` (listed in
-``.gitignore``), under a name that carries a hash of the source, so a
+``unpack.c`` (the export's bit-plane unpack) and ``corpusgen.c`` (the
+synthetic corpus carver of ``data.corpus='synthetic_native'``, a copy of
+the JAX package's) are each compiled with the system C compiler (``cc
+-O3 -shared -fPIC``) at first use into ``levelgan_torch/_build/`` (listed
+in ``.gitignore``), under a name that carries a hash of the source, so a
 stale library is never loaded, and bound with ``ctypes``.  A failed build
 raises with the compiler's message: there is no NumPy fallback on this
 path (``export.unpack_levels_plain`` is the plain version the tests hold
-it to).
+the unpack to; ``data.dataset.synthetic_corpus`` is the NumPy carver, a
+different random stream).
 """
 
 from __future__ import annotations
@@ -26,6 +29,15 @@ BUILD_DIR = _DIR.parent / "_build"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# argument and result types of each library's entry point
+_SIGNATURES = {
+    "unpack": ("unpack_planes", [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int32, ctypes.c_void_p]),
+    "corpusgen": ("gen_levels", [ctypes.c_uint64, ctypes.c_int64,
+                                 ctypes.c_int32, ctypes.c_double,
+                                 ctypes.c_double, ctypes.c_double,
+                                 ctypes.c_double, ctypes.c_void_p]),
+}
 
 
 def _lib_path(stem: str) -> Path:
@@ -61,11 +73,10 @@ def load(stem: str) -> ctypes.CDLL:
         lib = _libs.get(stem)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(stem)))
-            if stem == "unpack":
-                lib.unpack_planes.argtypes = [
-                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-                    ctypes.c_void_p]
-                lib.unpack_planes.restype = ctypes.c_int
+            if stem in _SIGNATURES:
+                name, argtypes = _SIGNATURES[stem]
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _libs[stem] = lib
         return lib
 
@@ -89,3 +100,21 @@ def unpack_planes(packed: np.ndarray, bits: int, out: np.ndarray) -> None:
                                       out.ctypes.data)
     if rc:
         raise RuntimeError(f"unpack_planes failed with code {rc}")
+
+
+def synthetic_corpus_native(n: int, size: int, seed: int = 1234,
+                            wall_density: float = 0.25,
+                            hazard_rate: float = 0.04,
+                            coin_rate: float = 0.06,
+                            rate_oversample: float = 0.0) -> np.ndarray:
+    """``n`` carved levels [n, size, size] uint8 from ``corpusgen.c``: the
+    JAX package's native carver, bit for bit (xoshiro256** seeded by
+    splitmix64, its own stream: deterministic in ``seed``, a different
+    corpus from the NumPy carver's)."""
+    out = np.empty((n, size, size), np.uint8)
+    rc = load("corpusgen").gen_levels(seed, n, size, wall_density,
+                                      hazard_rate, coin_rate,
+                                      rate_oversample, out.ctypes.data)
+    if rc:
+        raise RuntimeError(f"gen_levels failed with code {rc}")
+    return out

@@ -21,6 +21,7 @@ from levelgan_torch.env import agent, sim
 from levelgan_torch.train.state import make_agent_optimizers
 from test_torch_env import _levels, assert_trajectories_equal, \
     jax_rollout_noise
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 CUR = CurriculumConfig(entropy_coef=0.05, value_coef=0.5)

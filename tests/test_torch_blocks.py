@@ -20,6 +20,7 @@ from levelgan.ops import blocks as jblocks
 from levelgan_torch.kernels import upsample_block as k1
 from levelgan_torch.kernels import upsample_rows as k1l
 from levelgan_torch.ops import blocks
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the tolerance tests/test_kernels.py holds the Pallas kernels to in f32
 ATOL = RTOL = 1e-4

@@ -28,6 +28,7 @@ from levelgan_torch.config import Config
 from levelgan_torch.lio.checkpoint import save_checkpoint
 from levelgan_torch.train import state as tstate
 from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N_CRITIC, LEVEL = 4, 2, 16
 

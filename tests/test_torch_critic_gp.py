@@ -24,6 +24,7 @@ from levelgan_torch.config import ModelConfig
 from levelgan_torch.kernels import gp_penalty as k2
 from levelgan_torch.models import Critic
 from levelgan_torch.ops import grad_penalty as gp
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCORE_TOL = 1e-4   # f32 on both sides; the JAX Pallas-vs-XLA tolerance
 B = 4

@@ -29,6 +29,7 @@ from levelgan_torch.kernels import gp_penalty as k2
 from levelgan_torch.models import Critic
 from levelgan_torch.ops import grad_penalty as gp
 from test_torch_critic_gp import B, _cfgs, _inputs, _j, _jax_gp, _models, _t
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5      # f32 on both sides (tests/test_gp_kernel.py)
 

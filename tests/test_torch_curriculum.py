@@ -38,6 +38,7 @@ from levelgan_torch.lio.checkpoint import load_checkpoint
 from levelgan_torch.models import Critic, Generator
 from levelgan_torch.train.curriculum import make_curriculum_step
 from levelgan_torch.train.state import create_state
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N_CRITIC, T, LEVEL = 4, 2, 6, 16
 LR = 1e-4

@@ -24,6 +24,7 @@ from levelgan_torch.data.dataset import LevelDataset, synthetic_corpus
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
 from levelgan_torch.lio.metrics import tile_histogram
 from levelgan_torch.ops import presence
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("kw", [{}, {"rate_oversample": 0.5, "seed": 7}])
@@ -103,9 +104,16 @@ def test_dataset_npz_corpus_and_checks(tmp_path):
 
 
 def test_synthetic_native_raises_until_copied():
-    with pytest.raises(NotImplementedError, match="corpusgen"):
-        LevelDataset.from_config(_data_cfg(corpus="synthetic_native"),
-                                 ModelConfig(level_size=16))
+    """The C carver is copied now: ``synthetic_native`` is the JAX
+    package's native corpus (its own stream, not the NumPy carver's)."""
+    got = LevelDataset.from_config(_data_cfg(corpus="synthetic_native"),
+                                   ModelConfig(level_size=16))
+    want = JLevelDataset.from_config(_data_cfg(corpus="synthetic_native"),
+                                     JModelConfig(level_size=16))
+    np.testing.assert_array_equal(got.levels, want.levels)
+    numpy_carver = LevelDataset.from_config(_data_cfg(corpus="synthetic"),
+                                            ModelConfig(level_size=16))
+    assert not np.array_equal(got.levels, numpy_carver.levels)
 
 
 def test_tile_histogram_and_kl_match_jax():

@@ -48,10 +48,12 @@ from levelgan_torch.train import state as tstate
 import test_torch_curriculum as tcur
 import test_torch_train as ttrain
 from test_torch_presence import _sample
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL, LOSS_RTOL = 5e-4, 5e-6, 2e-4     # tests/test_dist.py's
 B = 8                                         # 4 a rank at dp=2
+LAUNCH_S = 600   # the module launch's deadline (about 40 s of work)
 TILE = {"model.base_channels": 16, "model.critic_base_channels": 16,
         "model.latent_dim": 16, "model.group_size": 8,
         "model.dtype": "float32", "train.batch_size": B,
@@ -237,7 +239,7 @@ def dp2(tmp_path_factory):
     jobs += [("_collectives", ()), ("_presence", (fake,)),
              ("_replica_check", (str(root / "replica"),))]
     plan = mesh.Plan(world=2, local=2, first_rank=0, device_type="cpu")
-    ranks = mesh.launch(_rank_jobs, (jobs,), {}, plan)
+    ranks = mesh.launch(_rank_jobs, (jobs,), {}, plan, timeout=LAUNCH_S)
     res = {"root": root, "fake": fake, "cases": cases, "ranks": ranks}
     names = list(PRESETS) + list(STEPS) + ["collectives", "presence",
                                            "replica"]
@@ -376,6 +378,17 @@ def _done(proc, timeout=120):
             proc.communicate()
     assert proc.returncode == 0, text
     return text
+
+
+def test_launch_kills_its_ranks_and_raises_at_its_deadline():
+    """Two ranks that sleep past a 5 s deadline: both are killed and the
+    launch raises ``TimeoutError`` naming them, in seconds, not at the end
+    of their sleep."""
+    plan = mesh.Plan(world=2, local=2, first_rank=0, device_type="cpu")
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"ranks \[0, 1\]"):
+        mesh.launch(time.sleep, (120,), {}, plan, timeout=5)
+    assert time.monotonic() - t0 < 15
 
 
 def _free_port():

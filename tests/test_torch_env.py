@@ -15,6 +15,7 @@ from levelgan.data.dataset import ICE, SAND
 from levelgan.env import sim as jsim
 from levelgan_torch.data.codec import encode
 from levelgan_torch.env import sim
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = (8, 0.9)          # rollout_steps, gamma of the unit cases
 

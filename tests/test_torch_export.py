@@ -30,6 +30,7 @@ from levelgan_torch.lio.checkpoint import (latest_checkpoint,
                                            load_generator_params,
                                            load_manifest, save_checkpoint)
 from levelgan_torch.models import Generator
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NEAR_TIE = 1e-5
 B = 8

@@ -15,6 +15,7 @@ from levelgan_torch.data import features as tfeat
 from levelgan_torch.data.dataset import LevelDataset
 
 from test_torch_solver import random_levels
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_level_features_match_jax():

@@ -37,6 +37,7 @@ from levelgan_torch.config import Config
 from levelgan_torch.models import Critic, Generator
 from levelgan_torch.train import state as tstate
 from levelgan_torch.train.gan import corpus_cond_scale, make_gan_step
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 1e-4
 B, LEVEL = 4, 16

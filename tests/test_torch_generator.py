@@ -21,6 +21,7 @@ from levelgan_torch.bridge import generator_params_from_flat
 from levelgan_torch.config import ModelConfig
 from levelgan_torch.models import Generator, sample_head
 from levelgan_torch.ops.gumbel import tau_schedule
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGIT_TOL = 1e-4   # f32 on both sides; the JAX Pallas-vs-XLA tolerance
 

@@ -18,6 +18,7 @@ from levelgan_torch.kernels import upsample_rows as k1l
 from levelgan_torch.models import Generator
 from levelgan_torch.ops.blocks import (conv_transpose_2x,
                                        conv_transpose_2x_input_grad)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCHES = (1, 3, 64, 1024)
 

@@ -24,6 +24,7 @@ from levelgan_torch.config import PRESET_NAMES, preset
 from levelgan_torch.kernels import upsample_block as k1
 from levelgan_torch.kernels import upsample_rows as k1l
 from levelgan_torch.models import Generator
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # gumbel_64 up3 (the preset's K1L stage) and up2 as a second shape
 SHAPES = [(32, 64, 32), (16, 128, 64)]          # (H = W, Ci, Co)

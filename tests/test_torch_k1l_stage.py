@@ -16,6 +16,7 @@ from levelgan_torch.kernels import upsample_block as k1
 from levelgan_torch.kernels import upsample_rows as k1l
 from levelgan_torch.models import Generator
 from levelgan_torch.ops.blocks import conv_transpose_2x
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCHES = (1, 3, 64, 1024)
 NW = 8                 # warps of a block (csrc: NW)

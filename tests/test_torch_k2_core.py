@@ -17,6 +17,7 @@ import torch
 
 from levelgan.kernels.gp_penalty import norm_penalty as j_norm_penalty
 from levelgan_torch.kernels import gp_penalty as k2
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the flattened input gradient at gumbel_64, wgan_gp_32 and the 16x16 presets
 WIDTHS = (64 * 64 * 8, 32 * 32 * 8, 16 * 16 * 8)

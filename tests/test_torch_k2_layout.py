@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from levelgan_torch.config import PRESET_NAMES, preset
 from levelgan_torch.kernels import critic_grad as k2f
 from levelgan_torch.models.critic import critic_channels
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (M0, channels, group size): the five card cases of tests/test_torch_cuda.py
 CARD_CASES = [(16, (64, 128, 256), 16), (8, (64, 128), 16),

@@ -8,6 +8,7 @@ import torch
 from levelgan.export import unpack_levels as j_unpack_levels
 from levelgan_torch import export as texport
 from levelgan_torch.native import build as nbuild
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bits", range(1, 8))

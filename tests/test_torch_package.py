@@ -5,6 +5,7 @@ import sys
 
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _MODULES = [
     "levelgan_torch", "levelgan_torch.config", "levelgan_torch.device",
@@ -29,7 +30,8 @@ _MODULES = [
     "levelgan_torch.track.models", "levelgan_torch.track.race",
     "levelgan_torch.track.quality", "levelgan_torch.track.render",
     "levelgan_torch.track.train", "levelgan_torch.dist.mesh",
-    "chip_smoke", "whole_runs",
+    "levelgan_torch.lio.skillgap", "levelgan_torch.lio.causality",
+    "levelgan_torch.cli.progress_gif", "chip_smoke", "whole_runs",
 ]
 
 

@@ -22,6 +22,7 @@ from levelgan_torch.config import TrainConfig
 from levelgan_torch.ops.presence import (excess_weight_schedule,
                                          presence_penalty)
 from test_torch_train import B, N_CRITIC, check_one_step_matches_jax
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 

@@ -24,6 +24,7 @@ from levelgan_torch.lio.checkpoint import save_checkpoint
 from levelgan_torch.models import Generator
 
 from test_torch_solver import random_levels
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ("wall_frac", "hazard_frac", "coin_frac", "goal_dist")
 

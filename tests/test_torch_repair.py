@@ -24,6 +24,7 @@ from levelgan_torch.ops.repair import ensure_start_goal
 
 from test_torch_export import _cfgs, _jax_params
 from test_torch_solver import random_levels
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NEAR_TIE = 1e-5
 

@@ -35,6 +35,7 @@ from levelgan_torch.cli import train as cli_train
 from levelgan_torch.config import preset
 from levelgan_torch.lio.checkpoint import all_checkpoints, load_checkpoint
 from levelgan_torch.train import state as tstate
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"model.level_size": 16, "model.base_channels": 16,

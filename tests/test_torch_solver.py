@@ -11,6 +11,7 @@ from levelgan.env import solver as jsolver
 from levelgan_torch.config import GOAL, START, WALL
 from levelgan_torch.env import sim as tsim
 from levelgan_torch.env import solver as tsolver
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def random_levels(seed, b=24, size=16, wall=0.3, with_start=True):

@@ -34,6 +34,7 @@ from levelgan_torch.lio.checkpoint import load_checkpoint
 from levelgan_torch.track.data import KAPPA_MAX
 from levelgan_torch.track.models import TrackGenerator
 from levelgan_torch.train.state import create_state
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = 16
 TINY = {"train.batch_size": 4, "train.n_critic": 2, "model.n_segments": T,
@@ -114,9 +115,12 @@ def test_gate_all_reads_a_port_curriculum_checkpoint(tmp_path):
         ["--ckpt", path, "--n", "64", "--quality-n", "64", "--device",
          "cpu"])
     report, tracks = cli_validate.validate(args)
-    assert set(report["gates"]) == {"identity", "identity_shipped",
-                                    "quality"}
+    assert set(report["gates"]) == set(gates)
     assert report["gates"]["identity"]["informative"]
+    assert np.isfinite(report["gates"]["skillgap"]["separation"])
+    assert report["passed"] == all(
+        g["passed"] for k, g in report["gates"].items()
+        if k in ("quality", "skillgap"))
     assert report["gates"]["identity"]["threshold"] == 0.1
     assert tracks["raw"].shape == (report["n_levels"], T, 2)
     # gate_all's quality gate and the port's agree on the corpus side

@@ -26,6 +26,7 @@ from levelgan_torch.bridge import (critic_params_from_flat,
 from levelgan_torch.config import Config
 from levelgan_torch.track import data, ops, render
 from levelgan_torch.track.models import TrackCritic, TrackGenerator
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, T = 4, 16
 SMALL = {"model.n_segments": T, "model.rnn_hidden": 16,

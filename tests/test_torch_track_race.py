@@ -26,6 +26,7 @@ from levelgan.track import quality as j_quality
 from levelgan.track import race as j_race
 from levelgan_torch.bridge import agent_params_from_flat
 from levelgan_torch.track import data, quality, race
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, STEPS = 8, 16, 64
 RP = race.RaceParams(rollout_steps=STEPS)

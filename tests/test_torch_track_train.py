@@ -46,6 +46,7 @@ from levelgan_torch.track.race import DriverPolicy
 from levelgan_torch.track.train import (make_track_curriculum_step,
                                         make_track_wgan_step)
 from levelgan_torch.train.state import create_state
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N_CRITIC, T, STEPS = 4, 2, 16, 8
 LR = 1e-4

@@ -36,6 +36,7 @@ from levelgan_torch.models import Critic, Generator
 from levelgan_torch.train import state as tstate
 from levelgan_torch.train.wgan_gp import make_wgan_gp_step
 from test_torch_gan_step import exact_st_features  # noqa: F401 (fixture)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 1e-4
 B, N_CRITIC, LEVEL = 4, 2, 16
@@ -269,16 +270,6 @@ def test_step_raises_for_later_slices(override, match):
     _, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match=match):
         make_wgan_gp_step(cfg.override(**override))
-
-
-@pytest.mark.parametrize("override,match", [
-    ({"io.render_every": 10}, "render"), ({"io.profile": True}, "profile"),
-    ({"io.tensorboard": True}, "tensorboard"),
-])
-def test_train_raises_for_later_items(override, match):
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=match):
-        api.train(cfg.override(**override), device="cpu", echo=False)
 
 
 def test_step_randomness_depends_on_seed_and_step_only():
