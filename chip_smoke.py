@@ -130,13 +130,22 @@ Needs one CUDA card (exits non-zero without one, and without the
     --fit-calibration`` (the causality gates, verdicts printed; the
     sweeps' wall time and levels/s; K1 fwd at its three stages); the
     native carver's 4,096 levels at 64x64 against the NumPy carver;
-12. the data-parallel phase (``dp``; with two or more cards dp=N);
+12. the data-parallel phase (``dp``): the path's kernels at a dp=4
+    rank's batch (B = 16: curriculum_16, gumbel_64 and wgan_gp_32, the
+    mbstd pair's shapes) against their plain versions, the launcher at
+    world size 1 bit-equal to one process for each arm of ``DP_ARMS``
+    (curriculum_16, gumbel_64, BASELINE.md's mbstd pair: wgan_gp_32 with
+    ``train.w_presence=10`` and ``model.critic_mbstd=input``, and the
+    trunk mode), and with two or more cards each arm at dp=N against
+    dp=1, two dp=N runs bit for bit, and the warm step, the collectives a
+    step and each rank's idle share;
 13. print the ``kernels`` JSON line (the gates phase's launches under
     their paths' names), the card line, and the final
     ``{"ok": true, "device": ...}`` line.
 
 ``--phases`` runs a subset (for bring-up); only the full run prints the
-contract lines.
+contract lines.  ``--dp-arms`` runs a subset of the dp phase's arms
+(``DP_ARMS``), as a four-card call of a slice that changes only some.
 """
 
 from __future__ import annotations
@@ -217,6 +226,9 @@ PER_STEP["toy_dcgan_16"] = {"K1": 4, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
                             "K2 core fwd": 0, "K2 core bwd": 0, "K2 fused": 0}
 # the projection critic takes the K2 core ('auto'; fused refuses it)
 PER_STEP["conditional_32"] = {**PER_STEP["wgan_gp_32"], "K2 fused": 0}
+# the dp phase's mbstd pair (wgan_gp_32 with model.critic_mbstd): 'auto'
+# takes the K2 core, as the fused GP refuses an mbstd critic
+PER_STEP["mbstd_pair"] = PER_STEP["conditional_32"]
 # the curriculum (n_critic 3): three fakes and ONE generator forward (the
 # levels the agents play are the G update's fake) through the two stages,
 # the G update's backward, three GPs; the agents run no kernel of the port
@@ -3401,7 +3413,18 @@ def gates_phase(device, workdir, rows) -> dict:
 
 # ---- the dp phase: data parallelism through mesh.launch -------------------
 
-DP_PRESETS = ("curriculum_16", "gumbel_64")
+# the dp phase's arms: name -> (preset, overrides, full): a full arm also
+# runs the launcher at world size 1 on one card and the timed steps at
+# dp=N; the others only dp=N against dp=1 and two dp=N runs
+DP_ARMS = {
+    "curriculum_16": ("curriculum_16", {}, True),
+    "gumbel_64": ("gumbel_64", {}, True),
+    # BASELINE.md's "mbstd pair": the critic's per-position stddev over the
+    # batch, a statistic of the global batch under data parallelism
+    "mbstd_pair": ("wgan_gp_32", {"train.w_presence": 10.0,
+                                  "model.critic_mbstd": "input"}, True),
+    "mbstd_trunk": ("wgan_gp_32", {"model.critic_mbstd": "trunk"}, False),
+}
 DP_STEPS = 3                 # steps of each world-size-1 launcher run
 DP_COMPARE_STEPS = 10        # steps of the dp=N against dp=1 runs
 B_RANK = B_TRAIN // 4        # a rank's batch at dp=4, the kernels' B there
@@ -3466,6 +3489,8 @@ def dp_steps(cfg_dict, warm, timed, profiled, device_type="cuda"):
     times = []
     with api.step_mode():
         for i in range(warm + timed):
+            if i == warm:
+                mesh.collectives.clear()
             batch, noise = api.step_inputs(cfg, corpus, i, dev)
             sync()
             mesh.barrier()
@@ -3473,6 +3498,7 @@ def dp_steps(cfg_dict, warm, timed, profiled, device_type="cuda"):
             state, _ = step_fn(state, batch, noise=noise)
             sync()
             times.append(1e3 * (time.perf_counter() - t0))
+        coll = {k: v / timed for k, v in sorted(mesh.collectives.items())}
         mesh.barrier()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3488,7 +3514,7 @@ def dp_steps(cfg_dict, warm, timed, profiled, device_type="cuda"):
                ) / 1e3 / profiled
     return {"rank": mesh.rank(), "step_ms": statistics.median(times[warm:]),
             "min_ms": min(times[warm:]), "max_ms": max(times[warm:]),
-            "wall_ms": wall, "busy_ms": busy, "nccl_ms": nccl,
+            "collectives": coll, "wall_ms": wall, "busy_ms": busy, "nccl_ms": nccl,
             "nccl_calls": sum(e.count for e in rows
                               if "nccl" in e.key.lower()) // profiled,
             "idle": max(0.0, 1 - busy / wall) if rows else None}
@@ -3496,18 +3522,17 @@ def dp_steps(cfg_dict, warm, timed, profiled, device_type="cuda"):
 
 def dp_allreduce(names, reps=20):
     """On each rank: one update's all-reduce alone (``all_reduce_grads``
-    over gradients of the shapes of each config's generator and critic),
+    over gradients of the shapes of each arm's generator and critic),
     the ranks lined up first (host barrier, device sync), CUDA events
-    around the call; the median ms by config and model."""
+    around the call; the median ms by arm and model."""
     import torch
-    from levelgan_torch.config import preset
     from levelgan_torch.dist import mesh
     from levelgan_torch.train.state import create_state
 
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"rank": mesh.rank()}
     for name in names:
-        state = create_state(preset(name), dev)
+        state = create_state(dp_arm(name), dev)
         for model in ("generator", "critic"):
             grads = [torch.randn_like(p) for p in
                      getattr(state, model).parameters()]
@@ -3528,11 +3553,11 @@ def dp_allreduce(names, reps=20):
     return out
 
 
-def print_allreduce(plan) -> None:
+def print_allreduce(plan, arms=tuple(DP_ARMS)) -> None:
     print(f"  one update's all-reduce alone at dp={plan.world}, the ranks "
           "lined up:")
     from levelgan_torch.dist import mesh
-    for r in mesh.launch(dp_allreduce, (DP_PRESETS,), {}, plan):
+    for r in mesh.launch(dp_allreduce, (list(arms),), {}, plan):
         print(f"  rank {r.pop('rank')}: " + "; ".join(
             f"{k} {ms:.4f} ms for {mib:.2f} MiB" for k, (ms, mib)
             in r.items()))
@@ -3550,11 +3575,18 @@ def dp_allreduce_main() -> int:
     return 0
 
 
-def dp_config(name, workdir, tag, steps, **kw):
-    """``name`` for ``steps`` steps, one rank unless ``kw`` says otherwise
-    (``dist.dp=0`` would take every card), corpus cut to REPRO_CORPUS."""
+def dp_arm(name):
+    """The configuration of the dp phase's arm ``name`` (``DP_ARMS``)."""
     from levelgan_torch.config import preset
-    return preset(name).override(**{
+    base, kw, _ = DP_ARMS[name]
+    return preset(base).override(**kw)
+
+
+def dp_config(name, workdir, tag, steps, **kw):
+    """Arm ``name`` for ``steps`` steps, one rank unless ``kw`` says
+    otherwise (``dist.dp=0`` would take every card), corpus cut to
+    REPRO_CORPUS."""
+    return dp_arm(name).override(**{
         "data.corpus_size": REPRO_CORPUS, "train.steps": steps,
         "dist.dp": 1,
         "io.log_every": 1, "io.out_dir": os.path.join(workdir,
@@ -3562,9 +3594,9 @@ def dp_config(name, workdir, tag, steps, **kw):
         **kw})
 
 
-def dp_launcher_runs(device, workdir, train_counts):
-    """One card: each of DP_PRESETS trained DP_STEPS steps in this process
-    and through ``mesh.launch`` at world size 1 (NCCL, the gloo host
+def dp_launcher_runs(device, workdir, train_counts, arms):
+    """One card: each full arm of ``arms`` trained DP_STEPS steps in this
+    process and through ``mesh.launch`` at world size 1 (NCCL, the gloo host
     group), whose checkpoint must equal this process's bit for bit; the
     launched rank's kernel launches (counted in that process) must be
     DP_STEPS times the per-step counts."""
@@ -3572,7 +3604,7 @@ def dp_launcher_runs(device, workdir, train_counts):
     from levelgan_torch.dist import mesh
 
     plan = mesh.Plan(world=1, local=1, first_rank=0, device_type="cuda")
-    for name in DP_PRESETS:
+    for name in (a for a in arms if DP_ARMS[a][2]):
         alone = dp_config(name, workdir, "alone", DP_STEPS)
         with tf32_as_torch():
             res = api.train(alone, device=device, echo=False)
@@ -3613,15 +3645,16 @@ def dp_update_agreement(ref, got, start):
     return out
 
 
-def dp_many_cards(device, workdir, n):
-    """Two or more cards: each of DP_PRESETS at dp=n against dp=1 on the
+def dp_many_cards(device, workdir, n, arms):
+    """Two or more cards: each of ``arms`` at dp=n against dp=1 on the
     same global batch (DP_COMPARE_STEPS steps: every step's d_loss by
     DP_LOSS, each model's update by DP_COS; bf16, so not the f32 CPU
     tests' tolerance), two dp=n runs bit for bit (the runs' own replica
     check held every rank bit-equal at the checkpoints), a SIGTERM to a
     dp=n CLI run (every rank stops after one step, one checkpoint, exit 0),
-    and the warm step, the NCCL all-reduce's device time and each rank's
-    idle share at dp=n against dp=1 (``dp_steps``)."""
+    and, for the full arms, the warm step, the collectives a step, the
+    NCCL kernels' device time and each rank's idle share at dp=n against
+    dp=1 (``dp_steps``)."""
     import signal
     import numpy as np
     from levelgan_torch import api
@@ -3631,7 +3664,8 @@ def dp_many_cards(device, workdir, n):
     dt = device.type
     many = mesh.Plan(world=n, local=n, first_rank=0, device_type=dt)
     one = mesh.Plan(world=1, local=1, first_rank=0, device_type=dt)
-    for name in DP_PRESETS:
+    for name in arms:
+        full = DP_ARMS[name][2]
         init = dp_config(name, workdir, "init", 0)
         with tf32_as_torch():
             start = load_arrays(api.train(init, device=device,
@@ -3659,7 +3693,7 @@ def dp_many_cards(device, workdir, n):
         if diff:
             fail(f"{name}: two dp={n} runs differ: {diff[:8]}")
         cos = dp_update_agreement(ref, got, start)
-        lr = preset_lr(name)
+        lr = dp_arm(name).train.lr_g
         worst = max(float(np.abs(got[k] - ref[k]).max()) for k in ref
                     if k.startswith(("generator/", "discriminator/")))
         loss = [abs(a - b) / max(1.0, abs(a)) for a, b in zip(l1, ln)]
@@ -3671,7 +3705,7 @@ def dp_many_cards(device, workdir, n):
         if min(cos.values()) < DP_COS or max(loss) > DP_LOSS:
             fail(f"{name}: dp={n} does not follow dp=1 (cosine {cos}, "
                  f"d_loss {max(loss):.4g})")
-        for tag, plan in (("dp1", one), (f"dp{n}", many)):
+        for tag, plan in (("dp1", one), (f"dp{n}", many)) if full else ():
             cfg = dp_config(name, workdir, "steps", 0,
                             **{"dist.dp": plan.world})
             res = mesh.launch(dp_steps, (cfg.to_dict(), 5, 15, 3, dt), {},
@@ -3679,11 +3713,12 @@ def dp_many_cards(device, workdir, n):
             for r in res:
                 print(f"  {name} {tag} rank {r['rank']}: warm step median "
                       f"{r['step_ms']:.3f} ms ({r['min_ms']:.3f}-"
-                      f"{r['max_ms']:.3f}); profiled {r['wall_ms']:.3f} ms "
+                      f"{r['max_ms']:.3f}); collectives a step "
+                      f"{r['collectives']}; profiled {r['wall_ms']:.3f} ms "
                       f"a step, device busy {r['busy_ms']:.3f} ms, NCCL "
                       f"{r['nccl_ms']:.4f} ms in {r['nccl_calls']} kernels, "
                       f"idle share {r['idle']}")
-    print_allreduce(many)
+    print_allreduce(many, arms)
     # SIGTERM to the launching CLI process
     cfg = dp_config("curriculum_16", workdir, "sigterm", 500,
                     **{"dist.dp": n})
@@ -3719,29 +3754,25 @@ def dp_many_cards(device, workdir, n):
              f"{ckpts}: {text[-2000:]}")
 
 
-def preset_lr(name):
-    from levelgan_torch.config import preset
-    return preset(name).train.lr_g
-
-
-def dp_phase(device, workdir, rows, train_counts):
+def dp_phase(device, workdir, rows, train_counts, arms):
     """The dp phase: the path's kernels at a dp=4 rank's batch (B = 16)
     against their plain versions, the launcher at world size 1, and with
     two or more cards the data-parallel runs (``dp_many_cards``)."""
     import torch
     from levelgan_torch.config import preset
     print(f"  the path's kernels at a dp=4 rank's batch, B = {B_RANK}:")
-    for name in ("curriculum_16", "gumbel_64"):
+    for name in ("curriculum_16", "gumbel_64", "wgan_gp_32"):
         train_kernel_parity(preset(name), device, rows, b=B_RANK)
     fused_kernel_parity(device, rows, b=B_RANK, only=("curriculum_16",))
     gen = torch.Generator(device).manual_seed(410)
     floor = launch_floor_ms()
-    for config, f in (("16x16", 16 * 16 * 8), ("gumbel_64", 64 * 64 * 8)):
+    for config, f in (("16x16", 16 * 16 * 8), ("gumbel_64", 64 * 64 * 8),
+                      ("wgan_gp_32", 32 * 32 * 8)):
         k2_core_pair(rows, f"{config}_b{B_RANK}", B_RANK, f, gen, floor)
-    dp_launcher_runs(device, workdir, train_counts)
+    dp_launcher_runs(device, workdir, train_counts, arms)
     n = torch.cuda.device_count()
     if n > 1:
-        dp_many_cards(device, workdir, n)
+        dp_many_cards(device, workdir, n, arms)
     else:
         print("  one card: the dp=N runs need two or more (python3 "
               "chip_smoke.py --phases build,dp on a machine with four)")
@@ -3846,9 +3877,15 @@ def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    phases = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--dp-arms", default=",".join(DP_ARMS),
+                    help="the dp phase's arms, a comma-separated subset of "
+                         + ",".join(DP_ARMS))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
     if set(phases) - set(PHASES):
         ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if set(args.dp_arms.split(",")) - set(DP_ARMS):
+        ap.error(f"unknown dp arms {args.dp_arms}")
 
     import torch
     if not torch.cuda.is_available():
@@ -3986,7 +4023,8 @@ def main(argv=()) -> int:
         if phase("dp"):
             print("data parallelism: the path's kernels at a rank's batch, "
                   "the launcher at world size 1, and dp=N with N cards")
-            dp_phase(device, workdir, train_records, train_counts)
+            dp_phase(device, workdir, train_records, train_counts,
+                     args.dp_arms.split(","))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[{time.perf_counter() - t_start:7.1f} s] phases done")

@@ -52,12 +52,14 @@ returns rank 0's summary; a process that a launcher started joins its
 group instead.  Each rank draws the global batch's indices and noise from
 the step's generator, as one process does, and steps on its slice; the
 steps all-reduce every update's gradients and make their batch statistics
-global, so a data-parallel step computes the single-process step on the
-same global batch.  Only rank 0 writes checkpoints (after checking that
-every rank holds the same bits), ``metrics.jsonl`` and ``ckpt_best/``;
-metrics and the tile histogram are reduced over the ranks at log points
-only.  A stop signal reaches every rank (the launcher forwards it), and
-the ranks agree on the host, once a step, to stop after the same step.
+global (the critic's minibatch stddev of ``model.critic_mbstd`` included,
+through the gradient penalty's double backward), so a data-parallel step
+computes the single-process step on the same global batch.  Only rank 0
+writes checkpoints (after checking that every rank holds the same bits),
+``metrics.jsonl`` and ``ckpt_best/``; metrics and the tile histogram are
+reduced over the ranks at log points only.  A stop signal reaches every
+rank (the launcher forwards it), and the ranks agree on the host, once a
+step, to stop after the same step.
 
 The port runs eagerly, so ``train.steps_per_dispatch`` (how many jitted
 steps the JAX package scans per dispatch) has no meaning here and is
@@ -381,11 +383,6 @@ def _check_mesh(cfg: Config, world: int) -> None:
     if b % world:
         raise ValueError(f"batch_size {b} not divisible by mesh size "
                          f"{world}")
-    if cfg.model.critic_mbstd and world > 1:
-        raise NotImplementedError(
-            "not ported yet: model.critic_mbstd under data parallelism (a "
-            "batch statistic inside the critic and the GP's double "
-            "backward; it would need a differentiable all-gather)")
 
 
 def render_samples(cfg: Config, gen, step: int, dev) -> str:

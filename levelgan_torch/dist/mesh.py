@@ -15,11 +15,20 @@ the card, gloo on the CPU, and the collectives are explicit:
   collective an update; every rank gets the same bits);
 - ``global_sum``: a differentiable sum over the ranks (sum forward, sum
   backward), for the batch statistics that feed a loss or a decision;
+- ``global_var``: the population variance over the global batch, two-pass
+  from two ``global_sum`` calls, for the critic's minibatch-stddev channel
+  (``model.critic_mbstd``): twice differentiable, so the gradient
+  penalty's input gradient and its double backward into the weights gain
+  the cross-sample terms of the whole batch, as the JAX package's sharded
+  ``var(axis=0)`` does;
 - ``any_rank`` / ``barrier``: host-side agreement on a stop and the wait
   after a checkpoint write, over a gloo group (no device sync).
 
 The collectives run whenever a process group exists, at world size 1 too
-(each is exact there); outside one every helper is the identity.
+(each is exact there; ``global_var`` there is the local ``var``); outside
+one every helper is the identity.  ``collectives`` counts the device
+collectives this process issued, by helper (a backward's ``global_sum``
+included).
 
 ``make_plan`` maps ``dist.dp`` / ``coordinator_address`` /
 ``num_processes`` / ``process_id`` to the ranks this process starts, and
@@ -39,6 +48,7 @@ tensor-parallel hook has no config entry point).
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 import pickle
@@ -58,6 +68,8 @@ _ENV_RANK = ("GROUP_RANK", "NODE_RANK")   # a launcher's host index
 _host_group = None                        # gloo group of this rank's process
 _launcher = None                          # pid of the process that launched it
 GROUP_TIMEOUT_S = 600.0   # a rendezvous or collective waits at most this
+# device collectives issued by this process, by helper
+collectives: collections.Counter = collections.Counter()
 
 
 @dataclass(frozen=True)
@@ -172,6 +184,7 @@ def all_reduce_grads(grads) -> list[torch.Tensor]:
         raise TypeError("all_reduce_grads takes gradients of one dtype")
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)
+    collectives["all_reduce_grads"] += 1
     flat.div_(dist.get_world_size())
     return [part.view_as(g) for part, g in
             zip(flat.split([g.numel() for g in grads]), grads)]
@@ -185,6 +198,7 @@ class _GlobalSum(torch.autograd.Function):
     def forward(ctx, x):
         y = x.clone()
         dist.all_reduce(y)
+        collectives["global_sum"] += 1
         return y
 
     @staticmethod
@@ -208,6 +222,23 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     return global_sum(x.mean()) / dist.get_world_size()
 
 
+def global_var(x: torch.Tensor) -> torch.Tensor:
+    """The population variance over axis 0 of the ranks' concatenated
+    batch (equal shards), two-pass as ``jnp.var``: the mean from the
+    shards' sums, then the squared deviations' sums, each a
+    ``global_sum`` over N = the local batch x the world size.  In one
+    rank (a group of one, or none) it is ``x.var(0, unbiased=False)``, the
+    single-process bits.  Every rank must call it at the same point: its
+    two all-reduces (and their twins in each backward) pair across the
+    ranks in call order."""
+    n = world_size()
+    if n == 1:
+        return x.var(dim=0, unbiased=False)
+    count = x.shape[0] * n
+    mean = global_sum(x.sum(dim=0)) / count
+    return global_sum((x - mean).square().sum(dim=0)) / count
+
+
 def reduce_for_log(metrics: dict, counts: torch.Tensor):
     """(``metrics`` with each tensor the ranks' mean, ``counts`` summed over
     the ranks), in one collective: a log point's reduction."""
@@ -218,6 +249,7 @@ def reduce_for_log(metrics: dict, counts: torch.Tensor):
                     + [metrics[k].detach().float().reshape(1)
                        for k in names])
     dist.all_reduce(buf)
+    collectives["reduce_for_log"] += 1
     means = buf[counts.numel():] / dist.get_world_size()
     return ({**metrics, **dict(zip(names, means.unbind()))},
             buf[:counts.numel()])

@@ -8,7 +8,10 @@ embedding as extra input channels; 'projection' adds
 <W_p emb(c), sum_hw phi(x)> at the head.  ``critic_mbstd``: '' (off),
 'trunk' (one across-batch stddev scalar as an extra trunk channel) or
 'input' (a per-position across-batch stddev map as an extra input
-channel), scaled by ``mbstd_scale`` when given.
+channel), scaled by ``mbstd_scale`` when given.  Under data parallelism
+the across-batch statistic is the global batch's (``mesh.global_var``),
+as the JAX package's sharded ``var(axis=0)`` is; every rank's critic
+takes it at the same point of every call.
 
 Parameters keep the Flax names and f32 layouts (``down{i}.kernel`` HWIO,
 ``scale{i}``/``bias{i}``, ``head.kernel`` [in, 1], ``cond_embed``,
@@ -28,6 +31,7 @@ from torch import nn
 
 from levelgan_torch.config import ModelConfig
 from levelgan_torch.device import torch_dtype
+from levelgan_torch.dist import mesh
 from levelgan_torch.models.generator import Dense
 from levelgan_torch.ops.blocks import group_norm, leaky_relu, up
 
@@ -96,7 +100,7 @@ class Critic(nn.Module):
         x = x.to(dtype)
         if cfg.critic_mbstd == "input":
             # per-position across-batch stddev, mean over tile channels
-            mbmap = torch.sqrt(x.float().var(dim=0, unbiased=False)
+            mbmap = torch.sqrt(mesh.global_var(x.float())
                                + 1e-8).mean(-1)                 # [H, W]
             if mbstd_scale is not None:
                 mbmap = mbmap * mbstd_scale
@@ -122,8 +126,7 @@ class Critic(nn.Module):
 
         phi = x                              # [B, 4, 4, chans[-1]]
         if cfg.critic_mbstd == "trunk":
-            mb = torch.sqrt(x.float().var(dim=0, unbiased=False)
-                            + 1e-8).mean()
+            mb = torch.sqrt(mesh.global_var(x.float()) + 1e-8).mean()
             if mbstd_scale is not None:
                 mb = mb * mbstd_scale
             x = torch.cat([x, mb.to(dtype).expand(*x.shape[:3], 1)], dim=-1)

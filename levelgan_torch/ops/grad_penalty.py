@@ -53,7 +53,10 @@ def gradient_penalty(critic, real: torch.Tensor, fake: torch.Tensor,
                      ) -> torch.Tensor:
     """The plain GP.  With ``model.critic_mbstd`` set the scores couple
     through the batch, so the input gradient of their sum gains
-    cross-sample terms, as in the JAX package."""
+    cross-sample terms.  Under data parallelism they span the global
+    batch: the critic's statistic is ``mesh.global_var``, whose
+    ``global_sum`` all-reduces run again in this gradient's backward
+    (summing every rank's cotangents) and in the double backward."""
     x_hat = interpolate(real, fake, eps, generator=generator)
     x_hat.requires_grad_(True)
     score = critic(x_hat, cond).float().sum()

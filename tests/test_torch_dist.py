@@ -36,6 +36,7 @@ from levelgan.lio.checkpoint import load_checkpoint as j_load_checkpoint
 from levelgan.ops.presence import presence_penalty as j_presence_penalty
 from levelgan.train.curriculum import create_curriculum_state as j_create_cur
 from levelgan.train.curriculum import make_curriculum_step as j_make_cur
+from levelgan.train.gan import make_gan_step as j_make_gan
 from levelgan.train.state import create_state as j_create_state
 from levelgan.train.wgan_gp import make_wgan_gp_step as j_make_wgan
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -135,9 +136,10 @@ def _injected_step(cfg_dict, models, step, baseline, ids, draws):
     state.step = step
     if baseline is not None:
         state.g_baseline = torch.tensor(baseline)
+    axis = 0 if cfg.train.loss == "gan" else 1     # [B, H, W] or [n, B, ..]
     with api.step_mode():
         state, met = api.make_step_fn(cfg)(
-            state, mesh.shard(torch.from_numpy(ids), 1),
+            state, mesh.shard(torch.from_numpy(ids), axis),
             noise=mesh.shard_tree(draws))
     hist = met.pop("gen_hist")
     met, hist = mesh.reduce_for_log(met, hist)
@@ -177,17 +179,22 @@ def _rank_jobs(jobs):
 
 def _jax_mesh2_step(jcfg, j_state, ids):
     """The JAX step on the conftest's 2-device mesh: batch sharded on
-    'data', state replicated."""
+    'data' (ids [B, H, W] for the BCE step, [n_critic, B, H, W] else),
+    state replicated."""
     m2 = make_mesh(2)
-    step = (j_make_cur if jcfg.train.loss == "curriculum" else j_make_wgan)
+    step, spec = {"curriculum": (j_make_cur, P(None, "data")),
+                  "gan": (j_make_gan, P("data"))}.get(
+        jcfg.train.loss, (j_make_wgan, P(None, "data")))
     f = jax.jit(step(jcfg), in_shardings=(
-        replicated_sharding(m2), NamedSharding(m2, P(None, "data"))))
+        replicated_sharding(m2), NamedSharding(m2, spec)))
     return f(j_state, jnp.asarray(ids))
 
 
-def _wgan_case():
+def _wgan_case(**kw):
+    """The WGAN-GP step with the presence prior (and ``kw``'s overrides)
+    from the JAX side's parameters and draws."""
     jcfg, _ = ttrain._cfgs()
-    jcfg = jcfg.override(**{"train.w_presence": 10.0})
+    jcfg = jcfg.override(**{"train.w_presence": 10.0, **kw})
     j_state = j_create_state(jcfg, jax.random.key(0))
     ids = synthetic_corpus(ttrain.N_CRITIC * ttrain.B, ttrain.LEVEL,
                            seed=3).reshape(ttrain.N_CRITIC, ttrain.B,
@@ -256,7 +263,15 @@ def test_dp2_run_equals_the_single_process_run(dp2, tmp_path, name):
     d_loss.  The run's own replica check held the ranks' states bit-equal
     at the checkpoint."""
     one = api.train(_cfg(name, tmp_path), device="cpu", echo=False)
-    two = dp2[name]
+    got = check_dp2_run(one, tmp_path, dp2[name], dp2["root"] / name)
+    if "curriculum" in name:
+        assert float(got["g_baseline"]) != 0.0
+
+
+def check_dp2_run(one, one_out, two, two_out):
+    """``api.train``'s two-step dp=2 run (both ranks' results, its out
+    dir) against the single-process run; returns the dp=2 checkpoint's
+    arrays."""
     assert [r["rank"] for r in two] == [0, 1]
     assert two[0]["checkpoint"] == two[1]["checkpoint"]
     want, got = _arrays(one["checkpoint"]), _arrays(two[0]["checkpoint"])
@@ -264,7 +279,7 @@ def test_dp2_run_equals_the_single_process_run(dp2, tmp_path, name):
     for k, v in want.items():
         np.testing.assert_allclose(got[k], v, rtol=RTOL, atol=ATOL,
                                    err_msg=k)
-    lines1, lines2 = _metrics(tmp_path), _metrics(dp2["root"] / name)
+    lines1, lines2 = _metrics(one_out), _metrics(two_out)
     assert [r["step"] for r in lines2] == [1, 2]
     for a, b in zip(lines1, lines2):
         np.testing.assert_allclose(b["d_loss"], a["d_loss"], rtol=LOSS_RTOL)
@@ -272,8 +287,7 @@ def test_dp2_run_equals_the_single_process_run(dp2, tmp_path, name):
     host = ("wall_time", "step_ms")
     assert ({k: v for k, v in two[0]["metrics"].items() if k not in host}
             == {k: v for k, v in two[1]["metrics"].items() if k not in host})
-    if "curriculum" in name:
-        assert float(got["g_baseline"]) != 0.0
+    return got
 
 
 # ---- (b) dp=2 against the JAX package's 2-device mesh ----------------------
@@ -284,9 +298,15 @@ def test_dp2_step_equals_the_jax_mesh2_step(dp2, case):
     the ranks bit-equal, the metrics at rtol 1e-4 (the histogram exactly),
     the parameters and the EMA after their Adam update at
     ``tests/test_dist.py``'s tolerances."""
-    jcfg, j_state, ids, draws, _, _, _ = dp2["cases"][case]
+    jcfg, j_state, ids, _, _, _, _ = dp2["cases"][case]
+    check_mesh2_step(dp2[case], jcfg, j_state, ids)
+
+
+def check_mesh2_step(ranks, jcfg, j_state, ids):
+    """Two ranks' ``_injected_step`` results against the JAX step on
+    ``make_mesh(2)``."""
     j_new, j_met = _jax_mesh2_step(jcfg, j_state, ids)
-    r0, r1 = dp2[case]
+    r0, r1 = ranks
     for k, v in r0["state"].items():
         np.testing.assert_array_equal(r1["state"][k], v, err_msg=k)
     assert r0["metrics"] == r1["metrics"]
@@ -296,7 +316,7 @@ def test_dp2_step_equals_the_jax_mesh2_step(dp2, case):
                                    rtol=1e-4, atol=1e-6, err_msg=k)
     want = {"generator": j_new.generator, "critic": j_new.discriminator,
             "g_ema": j_new.g_ema}
-    if case == "curriculum_joint":
+    if jcfg.train.loss == "curriculum":
         want.update(agent_strong=j_new.agent_strong,
                     agent_weak=j_new.agent_weak)
         np.testing.assert_allclose(r0["state"]["g_baseline"],
@@ -536,10 +556,3 @@ def test_a_process_a_launcher_started_joins_its_group(tmp_path,
             torch.distributed.destroy_process_group()
     assert res["rank"] == 0 and not res["preempted"]
     assert int(_arrays(res["checkpoint"])["step"]) == 2
-
-
-def test_critic_mbstd_is_refused_under_data_parallelism(tmp_path):
-    cfg = _cfg("toy_dcgan_16", tmp_path, **{"dist.dp": 2,
-                                            "model.critic_mbstd": "trunk"})
-    with pytest.raises(NotImplementedError, match="critic_mbstd"):
-        api.train(cfg, device="cpu", echo=False)

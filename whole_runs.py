@@ -11,7 +11,10 @@ validate`` (the corpus is carved here while the run trains), and writes to
 beside the checkpoint's ``manifest.json``, ``validate.json`` and
 ``metrics.jsonl`` (a curriculum run's ``g_ema.npz`` also holds its
 trained agents, which the skill-gap gate plays); ``DIR/runs.json`` holds
-the card's name and power limit and each run's wall time.  The full
+the card's name and power limit, each run's wall time and, for a tile
+run, the START placement of validate's raw levels beside the corpus's
+(the cells that hold a START in any level, and the inverse Simpson index
+of the START marginal).  ``--set dist.dp=4`` trains over four cards.  The full
 checkpoints stay in ``whole_runs_work/`` (not kept: the optimizer state
 is 5x the EMA).  The track presets (``racetrack_32``,
 ``race_curriculum_32``) train the same way on their whole 4096-track
@@ -30,7 +33,10 @@ calibration on the shipped path (``tools.eval_cond --n 256 --repair
 fitted), runs ``tools.gate_all``
 on each with its default thresholds (kept in ``SCRATCH/<preset>/`` and
 reused), and writes one row per preset: steps, card, wall time, the port
-validate's gates, gate_all's gates and the JAX row it is compared with.
+validate's gates, gate_all's gates, the START placement and the JAX row it
+is compared with: ``JAX_ROWS[run]`` where the run (its name without a
+``_dp<N>`` tag) has a row of its own, then without a ``gate_all`` row of
+the preset's; else the preset's.
 Rows already in ``--out`` for runs that ``--runs`` does not hold are kept.
 """
 
@@ -39,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -52,6 +59,7 @@ PRESETS = ("toy_dcgan_16", "wgan_gp_32", "wgan_gp_32_structural",
            "curriculum_16", "racetrack_32", "race_curriculum_32")
 SPLIT = {"gumbel_64"}         # trained as two runs joined by --resume auto
 LOG_EVERY = 100
+PLACEMENT_N = 1024            # levels of the START placement (BASELINE.md's)
 
 # the JAX package's rows, as its records give them
 JAX_ROWS = {
@@ -66,6 +74,21 @@ JAX_ROWS = {
         "source": "BASELINE.md, 20k-step soak, tools/validate at step 4,000 "
                   "(runs/gumbel_soak20k); gate_all's row is its step 20,000",
         "steps": 4000, "kl": 0.00083, "chi2_per_dof_mean": 1.6},
+    # BASELINE.md's "mbstd pair" (round 3): wgan_gp_32 + train.w_presence=10
+    # + model.critic_mbstd=input at 3,000 steps, trained here by
+    # ``train --presets wgan_gp_32 --set train.w_presence=10 --set
+    # model.critic_mbstd=input --set train.steps=3000 --tag _mbin`` (and
+    # ``--set dist.dp=4 --tag _mbin_dp4`` over four cards)
+    "wgan_gp_32_mbin": {
+        "source": "artifacts/quality_wgan_presence_mbin3k.json "
+                  "(runs/wgan_presence_mbin3k, 1,024 raw levels) and "
+                  "BASELINE.md round 3 (the pair's 3,000-step row: tile KL, "
+                  "structural chi2/dof, START cells of 1,024 levels; the "
+                  "corpus's 623); no gate_all row",
+        "steps": 3000, "kl": 0.0287, "chi2_per_dof_structural": 457,
+        "start_cells": 865, "start_inv_simpson": 245, "corpus_start_cells": 623,
+        "solvable_frac": 0.95703125, "mean_pairwise_hamming": 0.5577974915504456,
+        "tile_entropy_nats": 1.3024481326490687},
 }
 GATES_ALL = {"wgan_gp_32": "runs/wgan_base",
              "wgan_gp_32_structural": "runs/wgan_gp_32_structural",
@@ -95,6 +118,20 @@ def _config(name: str, sets: list[str]):
     from levelgan_torch.cli.train import parse_overrides
     from levelgan_torch.config import load_config
     return load_config(None, name, parse_overrides(sets))
+
+
+def start_placement(levels) -> dict:
+    """START placement over tile levels [n, H, W]: the cells that hold a
+    START in some level, the inverse Simpson index of the START marginal
+    over the cells, and STARTs a level."""
+    import numpy as np
+    from levelgan_torch.config import START
+    per_cell = (np.asarray(levels) == START).sum(axis=0).astype(np.float64)
+    total = per_cell.sum()
+    simpson = float(np.square(per_cell / total).sum()) if total else 0.0
+    return {"start_cells": int((per_cell > 0).sum()),
+            "start_inv_simpson": 1.0 / simpson if simpson else 0.0,
+            "starts_per_level": float(total / len(levels))}
 
 
 def _carve(cfg, box: dict) -> None:
@@ -158,8 +195,13 @@ def train_one(name: str, work: str, out: str, split_s: float,
         ["--ckpt", final, "--n", "1024",   # tools.gate_all's n
          *(("--device", device) if device else ())])
     t1 = time.perf_counter()
-    report, _ = validate.validate(args, ds=box["ds"])
+    report, levels = validate.validate(args, ds=box["ds"])
     row["validate_wall_s"] = time.perf_counter() - t1
+    if "raw" in levels and levels["raw"].ndim == 3:    # tile levels
+        raw = levels["raw"][:PLACEMENT_N]
+        row["placement"] = {
+            "raw": start_placement(raw),
+            "corpus": start_placement(box["ds"].levels[:len(raw)])}
     row["validate_carve_s"] = box["carve_s"]
     row["validate"] = {"gates": report["gates"], "passed": report["passed"]}
     dest = os.path.join(out, name + tag)
@@ -275,8 +317,11 @@ def cmd_record(a) -> int:
         with open(os.path.join(runs, name, "validate.json")) as fh:
             port = json.load(fh)
         g = _gate(name, row["preset"], os.path.join(runs, name), a.work)
-        jax_row = dict(JAX_ROWS.get(row["preset"], {}))
-        if row["preset"] in GATES_ALL:
+        key = re.sub(r"_dp\d+$", "", name)
+        own = key not in PRESETS and key in JAX_ROWS
+        jax_row = dict(JAX_ROWS[key] if own
+                       else JAX_ROWS.get(row["preset"], {}))
+        if not own and row["preset"] in GATES_ALL:
             j = jax_gates[GATES_ALL[row["preset"]]]
             jax_row["gate_all"] = {"ckpt": j["ckpt"], "passed": j["passed"],
                                    "gates": _gates(j)}
@@ -294,6 +339,8 @@ def cmd_record(a) -> int:
                          **({"eval_cond_fit_rc": g["eval_cond_fit_rc"]}
                             if g["eval_cond_fit_rc"] is not None else {}),
                          **({"error": g["error"]} if "error" in g else {})},
+            **({"placement": row["placement"]} if "placement" in row
+               else {}),
             "jax": jax_row})
     if os.path.exists(a.out):
         # earlier calls' rows stay, in their order; a run recorded again
