@@ -106,6 +106,13 @@ Needs one CUDA card (exits non-zero without one, and without the
    curriculum_16, racetrack_32 and race_curriculum_32, the curricula with
    their two rollouts' host time and span and one rollout's device
    operations (the first rollout under ``set_sync_debug_mode('error')``);
+9b. the pair_drift phase: BASELINE.md's mbstd pair (wgan_gp_32, the
+    softmax head, ``train.w_presence=10``, ``model.critic_mbstd=input``,
+    bf16) and its control trained 8 injected steps from one seeded state
+    on the card and on the CPU; each step's loss deviations and the
+    update's deviation at the end, the pair's held to PAIR_DRIFT_FACTOR
+    times the control's (B cut to 16 where the CPU would take over 60 s,
+    printed); the launches of each arm's card run; the pair's warm step;
 10. reproducibility: a fresh process runs 3 seeded gumbel_64 steps through
     ``api.train`` three times, and its first run must equal its later ones
     in every array (``first_run_check``); then two such runs here, by
@@ -3779,6 +3786,147 @@ def dp_phase(device, workdir, rows, train_counts, arms):
 
 
 
+# the pair_drift phase: BASELINE.md's mbstd pair (wgan_gp_32 with
+# train.w_presence=10 and model.critic_mbstd=input, the softmax head, bf16)
+# and its control (neither knob) trained PAIR_DRIFT_STEPS injected steps
+# from one seeded state on the card (K1, K1 bwd, K2 core) and on this
+# machine's CPU (the plain versions).  Per step, a loss's deviation is
+# |card - cpu| / max(|cpu|, 1); at the end the update's deviation is
+# |p_card - p_cpu| / |p_cpu - p_0| over every parameter of G and D.  The
+# pair's mean loss deviation and its update deviation may each be at most
+# PAIR_DRIFT_FACTOR times the control's: a fault on the pair's path (the
+# mbstd channel, the presence prior) shows as drift the control does not
+# have.  On an H100 the pair reads 0.43x / 1.5x the control's, and faults
+# planted on the card side of a copy read: the mbstd map zeroed 151x /
+# 21x (caught), the map 1% high 0.75x / 2.0x, its variance or the presence
+# prior's counts rounded to bf16 at most 1.2x / 2.0x (not caught: faults
+# of a rounding's size are the CPU parity tests').  The CPU side is cut to
+# PAIR_DRIFT_CUT_B levels a batch when the CPU would take over
+# PAIR_DRIFT_CPU_S for both arms at B = 64.
+PAIR_DRIFT_ARMS = {"pair": {"train.w_presence": 10.0,
+                            "model.critic_mbstd": "input"},
+                   "control": {}}
+PAIR_DRIFT_STEPS = 8
+PAIR_DRIFT_FACTOR = 4.0
+PAIR_DRIFT_CPU_S = 60.0
+PAIR_DRIFT_CUT_B = 16
+PAIR_DRIFT_LOSSES = ("d_loss", "gp", "wdist", "g_loss", "presence")
+
+
+def tree_to(tree, device):
+    """``tree`` (tensors in dicts, lists and tuples; None where a head
+    draws nothing) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return None if tree is None else tree.to(device)
+
+
+def pair_drift_arm(name, device, batch, train_counts):
+    """One arm of the pair_drift phase: (per-step loss deviations, the
+    update's deviation, CPU seconds); the card side's launches go into
+    ``train_counts`` under the arm's path name."""
+    import torch
+    from levelgan_torch.api import step_mode
+    from levelgan_torch.config import preset
+    from levelgan_torch.train.state import create_state
+    from levelgan_torch.train.wgan_gp import draw_step_noise, \
+        make_wgan_gp_step
+
+    cfg = preset("wgan_gp_32").override(**{
+        **PAIR_DRIFT_ARMS[name], "train.batch_size": batch})
+    m, t = cfg.model, cfg.train
+    g = torch.Generator().manual_seed(31)
+    inputs = [(torch.randint(0, m.n_tiles, (t.n_critic, batch, m.level_size,
+                                            m.level_size), dtype=torch.uint8,
+                             generator=g),
+               draw_step_noise(cfg, t.n_critic, batch, "cpu", g))
+              for _ in range(PAIR_DRIFT_STEPS)]
+    sides, cpu_s = {}, 0.0
+    for side in ("card", "cpu"):
+        dev = device if side == "card" else torch.device("cpu")
+        state = create_state(cfg, dev, seed=33)
+        p0 = [p.detach().float().cpu().clone() for p in
+              (*state.generator.parameters(), *state.critic.parameters())]
+        step = make_wgan_gp_step(cfg)
+        losses = []
+        if side == "card":
+            torch.cuda.synchronize()
+            reset_counts()
+        t0 = time.perf_counter()
+        with step_mode():
+            for ids, noise in inputs:
+                state, met = step(state, ids.to(dev), noise=tree_to(
+                    noise, dev))
+                losses.append({k: float(met[k]) for k in PAIR_DRIFT_LOSSES
+                               if k in met})
+        if side == "card":
+            torch.cuda.synchronize()
+            train_counts[f"wgan_gp_32 pair_drift {name}"] = read_counts()
+        else:
+            cpu_s = time.perf_counter() - t0
+        sides[side] = (losses, [p.detach().float().cpu() for p in (
+            *state.generator.parameters(), *state.critic.parameters())])
+    (card_l, card_p), (cpu_l, cpu_p) = sides["card"], sides["cpu"]
+    devs = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1.0) for k in b}
+            for a, b in zip(card_l, cpu_l)]
+    num = math.sqrt(sum(float((a - b).double().square().sum())
+                        for a, b in zip(card_p, cpu_p)))
+    den = math.sqrt(sum(float((b - z).double().square().sum())
+                        for b, z in zip(cpu_p, p0)))
+    return devs, num / den, cpu_s
+
+
+def pair_drift(device, train_counts):
+    """The pair_drift phase (see PAIR_DRIFT_ARMS): prints every step's loss
+    deviations and the update's; fails when the pair drifts past its
+    control, or when a kernel of the path did not launch on the card."""
+    import torch
+    from levelgan_torch.config import preset
+    from levelgan_torch.train.state import create_state
+    from levelgan_torch.train.wgan_gp import make_wgan_gp_step
+
+    batch = B_TRAIN
+    # the CPU's time for one step of the pair at B = 64, scaled to both arms
+    cfg = preset("wgan_gp_32").override(**PAIR_DRIFT_ARMS["pair"])
+    state = create_state(cfg, "cpu", seed=33)
+    m, t = cfg.model, cfg.train
+    ids = torch.zeros((t.n_critic, batch, m.level_size, m.level_size),
+                      dtype=torch.uint8)
+    t0 = time.perf_counter()
+    make_wgan_gp_step(cfg)(state, ids, generator=torch.Generator())
+    est = (time.perf_counter() - t0) * PAIR_DRIFT_STEPS * len(PAIR_DRIFT_ARMS)
+    if est > PAIR_DRIFT_CPU_S:
+        batch = PAIR_DRIFT_CUT_B
+        print(f"  cut: the CPU side would take ~{est:.0f} s at B = "
+              f"{B_TRAIN} (over {PAIR_DRIFT_CPU_S:.0f} s), so both sides "
+              f"and both arms run B = {batch}")
+    res = {}
+    for name in PAIR_DRIFT_ARMS:
+        devs, upd, cpu_s = pair_drift_arm(name, device, batch, train_counts)
+        res[name] = (statistics.mean(max(d.values()) for d in devs), upd)
+        print(f"  {name} (B = {batch}, {PAIR_DRIFT_STEPS} steps, CPU side "
+              f"{cpu_s:.1f} s): loss deviation a step "
+              + " ".join("{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+                         + "}" for d in devs)
+              + f"; update deviation at the end {upd:.4g}; launches "
+              f"{train_counts[f'wgan_gp_32 pair_drift {name}']}")
+    (p_loss, p_upd), (c_loss, c_upd) = res["pair"], res["control"]
+    print(f"  pair / control: mean loss deviation {p_loss:.4g} / "
+          f"{c_loss:.4g}, update deviation {p_upd:.4g} / {c_upd:.4g} "
+          f"(allowed {PAIR_DRIFT_FACTOR} x control)")
+    for name in PAIR_DRIFT_ARMS:
+        c = train_counts[f"wgan_gp_32 pair_drift {name}"]
+        idle = [k for k in ("K1", "K1 bwd", "K2 core fwd", "K2 core bwd")
+                if not c[k]]
+        if idle:
+            fail(f"pair_drift {name}: {idle} never launched on the card")
+    if (p_loss > PAIR_DRIFT_FACTOR * c_loss
+            or p_upd > PAIR_DRIFT_FACTOR * c_upd):
+        fail("the mbstd pair drifts from the CPU more than its control")
+
+
 def kernels_line(records, counts, train_records, train_counts,
                  gate_counts=None):
     """One entry per kernel.  The forward kernels' times are summed over
@@ -3870,7 +4018,7 @@ def kernels_line(records, counts, train_records, train_counts,
 
 PHASES = ("build", "parity", "export", "export_repair", "export_cond",
           "export_profile", "train_parity", "k2_core", "train", "train_check",
-          "train_profile", "repro", "gates", "dp")
+          "train_profile", "pair_drift", "repro", "gates", "dp")
 
 
 def main(argv=()) -> int:
@@ -4008,6 +4156,13 @@ def main(argv=()) -> int:
                       f"pallas_gp={c.model.pallas_gp}")
                 state, step_fn, corpus = warm_steps(c, device)
                 profile_train(state, step_fn, corpus, c)
+        if phase("pair_drift"):
+            print("pair drift: the mbstd pair and its control, "
+                  f"{PAIR_DRIFT_STEPS} injected wgan_gp_32 steps on the card "
+                  "and on the CPU; then the pair's warm step")
+            pair_drift(device, train_counts)
+            warm_steps(preset("wgan_gp_32").override(
+                **PAIR_DRIFT_ARMS["pair"]), device)
         if phase("repro"):
             print("reproducibility: gumbel_64 trained twice from one seed, "
                   "then resumed and stopped by SIGTERM")

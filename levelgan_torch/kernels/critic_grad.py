@@ -532,9 +532,10 @@ def critic_input_grad_fwd(mcfg, params, x_hat: torch.Tensor, cond=None
     if mcfg.cond_dim:
         if cond is None:
             raise ValueError("conditional critic called without cond")
+        # the bias after the rounded product, as the Critic's Dense
         emb = leaky_relu(F.linear(cond.to(cdt),
-                                  params["cond_embed.kernel"].to(cdt).t(),
-                                  params["cond_embed.bias"].to(cdt)),
+                                  params["cond_embed.kernel"].to(cdt).t())
+                         + params["cond_embed.bias"].to(cdt),
                          mcfg.leaky_slope)
         xc = torch.cat([xc, emb[:, None, None, :].expand(
             *xc.shape[:3], emb.shape[-1])], dim=-1)

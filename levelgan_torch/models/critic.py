@@ -46,7 +46,8 @@ def critic_channels(cfg: ModelConfig) -> list[int]:
 
 class Conv4x4s2(nn.Module):
     """Flax ``nn.Conv(ch, (4, 4), strides=2, padding='SAME')`` on NHWC:
-    SAME at stride 2 on an even size pads one on each side."""
+    SAME at stride 2 on an even size pads one on each side.  The bias is
+    added to the output rounded to ``dtype``, as Flax adds it."""
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
@@ -56,8 +57,8 @@ class Conv4x4s2(nn.Module):
     def forward(self, x, dtype):
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype),
                      self.kernel.permute(3, 2, 0, 1).to(dtype),
-                     self.bias.to(dtype), stride=2, padding=1)
-        return y.permute(0, 2, 3, 1)
+                     stride=2, padding=1)
+        return y.permute(0, 2, 3, 1) + self.bias.to(dtype)
 
 
 class Critic(nn.Module):

@@ -44,7 +44,12 @@ def generator_stages(cfg: ModelConfig) -> list[int]:
 
 
 class Dense(nn.Module):
-    """Flax ``nn.Dense``: kernel [in, out], bias [out]; computes in ``dtype``."""
+    """Flax ``nn.Dense``: kernel [in, out], bias [out]; computes in ``dtype``.
+
+    The product is rounded to ``dtype`` before the bias (rounded to it too)
+    is added, as Flax does; a fused bias would round once (``F.linear``
+    with a bias on the CPU, cuBLAS's bias epilogue on the card).
+    """
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
@@ -52,12 +57,13 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out))
 
     def forward(self, x, dtype):
-        return F.linear(x.to(dtype), self.kernel.to(dtype).t(),
-                        self.bias.to(dtype))
+        return (F.linear(x.to(dtype), self.kernel.to(dtype).t())
+                + self.bias.to(dtype))
 
 
 class Conv3x3(nn.Module):
-    """Flax ``nn.Conv`` 3x3 SAME on NHWC; kernel HWIO [3, 3, Ci, Co]."""
+    """Flax ``nn.Conv`` 3x3 SAME on NHWC; kernel HWIO [3, 3, Ci, Co].  The
+    bias is added to the output rounded to ``dtype``, as in ``Dense``."""
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
@@ -66,9 +72,8 @@ class Conv3x3(nn.Module):
 
     def forward(self, x, dtype):
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dtype),
-                     self.kernel.permute(3, 2, 0, 1).to(dtype),
-                     self.bias.to(dtype), padding=1)
-        return y.permute(0, 2, 3, 1)
+                     self.kernel.permute(3, 2, 0, 1).to(dtype), padding=1)
+        return y.permute(0, 2, 3, 1) + self.bias.to(dtype)
 
 
 class UpsampleStage(nn.Module):

@@ -11,6 +11,8 @@ kernels' dx contraction.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -21,8 +23,16 @@ def up(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
-    return torch.where(x >= 0, x, slope * x)
+    """LeakyReLU with the slope rounded to x's dtype first, as JAX rounds
+    the weak-typed Python scalar of ``slope * x`` (0.2 is 0.2001953125 in
+    bf16); an f32 or f64 x keeps the slope of its own precision."""
+    return torch.where(x >= 0, x, _rounded(slope, x.dtype) * x)
 
 
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

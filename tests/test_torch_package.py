@@ -32,6 +32,7 @@ _MODULES = [
     "levelgan_torch.track.train", "levelgan_torch.dist.mesh",
     "levelgan_torch.lio.skillgap", "levelgan_torch.lio.causality",
     "levelgan_torch.cli.progress_gif", "chip_smoke", "whole_runs",
+    "cpu_pair_runs",
 ]
 
 

@@ -61,11 +61,14 @@ def _flat(tree, prefix):
 
 
 def _jax_draws(jcfg, state):
-    """The draws the JAX step makes from ``state.rng`` at ``state.step``."""
+    """The draws the JAX step makes from ``state.rng`` at ``state.step``
+    (batch ``train.batch_size``, ``train.n_critic`` critic iterations)."""
     m = jcfg.model
     size = m.level_size
+    bsz = jcfg.train.batch_size
     base = jax.random.fold_in(state.rng, state.step)
-    iter_keys = jax.random.split(jax.random.fold_in(base, 0), N_CRITIC)
+    iter_keys = jax.random.split(jax.random.fold_in(base, 0),
+                                 jcfg.train.n_critic)
     k_zg, k_sg = jax.random.split(jax.random.fold_in(base, 1))
 
     def t(a):
@@ -74,24 +77,24 @@ def _jax_draws(jcfg, state):
     def head_noise(key):
         """``sample_head``'s Gumbel draws: one for the plain head, the
         (base, START, GOAL) triple of the spatial structural head."""
-        shape = (B, size, size, m.n_tiles)
+        shape = (bsz, size, size, m.n_tiles)
         if m.structural_head != "spatial":
             return t(jax.random.gumbel(key, shape, jnp.float32))
         k_base, k_s, k_g = jax.random.split(key, 3)
         return (t(jax.random.gumbel(k_base, shape, jnp.float32)),
-                t(jax.random.gumbel(k_s, (B, size * size), jnp.float32)),
-                t(jax.random.gumbel(k_g, (B, size * size), jnp.float32)))
+                t(jax.random.gumbel(k_s, (bsz, size * size), jnp.float32)),
+                t(jax.random.gumbel(k_g, (bsz, size * size), jnp.float32)))
 
     its = []
     for k in iter_keys:
         k_aug, k_z, k_s, k_eps = jax.random.split(k, 4)
         its.append({
-            "elements": t(jax.random.randint(k_aug, (B,), 0, 8)),
-            "z": t(jax.random.normal(k_z, (B, m.latent_dim), jnp.float32)),
+            "elements": t(jax.random.randint(k_aug, (bsz,), 0, 8)),
+            "z": t(jax.random.normal(k_z, (bsz, m.latent_dim), jnp.float32)),
             "noise": head_noise(k_s),
-            "eps": t(jax.random.uniform(k_eps, (B, 1, 1, 1), jnp.float32))})
+            "eps": t(jax.random.uniform(k_eps, (bsz, 1, 1, 1), jnp.float32))})
     return {"critic": its, "g": {
-        "z": t(jax.random.normal(k_zg, (B, m.latent_dim), jnp.float32)),
+        "z": t(jax.random.normal(k_zg, (bsz, m.latent_dim), jnp.float32)),
         "noise": head_noise(k_sg)}}
 
 
@@ -154,17 +157,22 @@ def check_one_step_matches_jax(jcfg, extra_metrics=()):
     {}, {"model.pallas_gp": "xla", "model.critic_mbstd": "input"},
     {"model.cond_dim": 4, "model.cond_mode": "projection",
      "train.w_cond_match": 1.0, "train.cond_match_dim_weights": "1,8,8,4",
-     "data.corpus_size": 64}],
-    ids=["core_gp", "plain_gp_mbstd_input", "conditional_cond_match"])
+     "data.corpus_size": 64},
+    {"model.head": "softmax", "train.w_presence": 10.0,
+     "model.critic_mbstd": "input"}],
+    ids=["core_gp", "plain_gp_mbstd_input", "conditional_cond_match",
+         "softmax_mbstd_pair"])
 def test_one_wgan_gp_step_matches_jax(kw, exact_st_features):
     """The port's picker runs ``model.pallas_gp``; the JAX step its oracle.
     The conditional case scores and penalises under each real batch's
     features and adds the cond-match loss (the JAX side's straight-through
-    positions as ``exact_st_features`` computes them)."""
+    positions as ``exact_st_features`` computes them).  The last case is
+    BASELINE's mbstd pair with wgan_gp_32's head: the relaxed softmax
+    sample feeds the presence prior and the input mbstd channel."""
     jcfg, _ = _cfgs()
-    check_one_step_matches_jax(
-        jcfg.override(**kw),
-        extra_metrics=("cond_match",) if "model.cond_dim" in kw else ())
+    extra = (("cond_match",) if "model.cond_dim" in kw else ()) + (
+        ("presence",) if "train.w_presence" in kw else ())
+    check_one_step_matches_jax(jcfg.override(**kw), extra_metrics=extra)
 
 
 def test_freeze_critic_until_holds_critic_and_its_adam():

@@ -33,10 +33,12 @@ calibration on the shipped path (``tools.eval_cond --n 256 --repair
 fitted), runs ``tools.gate_all``
 on each with its default thresholds (kept in ``SCRATCH/<preset>/`` and
 reused), and writes one row per preset: steps, card, wall time, the port
-validate's gates, gate_all's gates, the START placement and the JAX row it
-is compared with: ``JAX_ROWS[run]`` where the run (its name without a
-``_dp<N>`` tag) has a row of its own, then without a ``gate_all`` row of
-the preset's; else the preset's.
+validate's gates, gate_all's gates, the START placement, the training
+window's tile KL (``kl_window``: at steps 1,000-3,000 by 500 and its range
+over the last 1,000 steps, from ``metrics.jsonl``) and the JAX row it
+is compared with: ``JAX_ROWS[run]`` where the run (its name without its
+tags: ``_dp<N>``, ``_seed<N>``, ...) has a row of its own, then without a
+``gate_all`` row of the preset's; else the preset's.
 Rows already in ``--out`` for runs that ``--runs`` does not hold are kept.
 """
 
@@ -45,7 +47,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import shutil
 import signal
 import subprocess
@@ -60,6 +61,7 @@ PRESETS = ("toy_dcgan_16", "wgan_gp_32", "wgan_gp_32_structural",
 SPLIT = {"gumbel_64"}         # trained as two runs joined by --resume auto
 LOG_EVERY = 100
 PLACEMENT_N = 1024            # levels of the START placement (BASELINE.md's)
+KL_AT = (1000, 1500, 2000, 2500, 3000)   # steps whose window KL a row keeps
 
 # the JAX package's rows, as its records give them
 JAX_ROWS = {
@@ -270,6 +272,30 @@ def _full_checkpoint(src: str, dest: str) -> str:
                       int(flat["step"]), 0)
 
 
+def kl_window(path: str, steps: int) -> dict | None:
+    """The training window's tile KL of ``metrics.jsonl`` (logged every
+    ``io.log_every`` steps): at KL_AT's steps (those the run reached) and
+    its range over the last 1,000 steps; None without KL lines."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        kl = {r["step"]: r["kl"] for r in map(json.loads, fh) if "kl" in r}
+    if not kl:
+        return None
+    last = [v for s, v in kl.items() if s > steps - 1000]
+    return {"at": {str(s): kl[s] for s in KL_AT if s in kl},
+            "last_1000": {"min": min(last), "max": max(last),
+                          "n": len(last)} if last else None}
+
+
+def jax_row_key(name: str) -> str | None:
+    """The JAX_ROWS run (not a preset) that the run ``name`` is or extends
+    by tags (``_dp4``, ``_seed3``, ...), the longest such; else None."""
+    keys = [k for k in JAX_ROWS if k not in PRESETS
+            and (name == k or name.startswith(k + "_"))]
+    return max(keys, key=len) if keys else None
+
+
 def _gates(row: dict) -> dict:
     return {k: {a: b for a, b in g.items() if a != "threshold"}
             for k, g in row.get("gates", {}).items()}
@@ -317,8 +343,8 @@ def cmd_record(a) -> int:
         with open(os.path.join(runs, name, "validate.json")) as fh:
             port = json.load(fh)
         g = _gate(name, row["preset"], os.path.join(runs, name), a.work)
-        key = re.sub(r"_dp\d+$", "", name)
-        own = key not in PRESETS and key in JAX_ROWS
+        key = jax_row_key(name)
+        own = key is not None
         jax_row = dict(JAX_ROWS[key] if own
                        else JAX_ROWS.get(row["preset"], {}))
         if not own and row["preset"] in GATES_ALL:
@@ -341,6 +367,8 @@ def cmd_record(a) -> int:
                          **({"error": g["error"]} if "error" in g else {})},
             **({"placement": row["placement"]} if "placement" in row
                else {}),
+            **({"kl_window": kl} if (kl := kl_window(os.path.join(
+                runs, name, "metrics.jsonl"), row["steps"])) else {}),
             "jax": jax_row})
     if os.path.exists(a.out):
         # earlier calls' rows stay, in their order; a run recorded again
