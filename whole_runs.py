@@ -4,9 +4,12 @@
 ``python3 whole_runs.py train [--presets ...] [--out DIR]`` (on one CUDA
 card): trains each preset at its own defaults and full steps through
 ``python -m levelgan_torch.cli.train`` (gumbel_64 as two runs joined by
-``--resume auto``: the first is sent SIGTERM after ``--split`` seconds),
-gates each final checkpoint on the card with ``levelgan_torch.cli.
-validate`` (the corpus is carved here while the run trains), and writes to
+``--resume auto``: the first is sent SIGTERM after ``--split`` seconds;
+``--max-wall S`` sends SIGTERM to whichever part runs S seconds after the
+start, and the run is gated at the step it reached), gates each final
+checkpoint on the card with ``levelgan_torch.cli.validate`` (the corpus
+is carved here while the run trains; a conditional model's calibration is
+fitted and gated too, ``--fit-calibration``), and writes to
 ``DIR/<preset>/``: ``g_ema.npz`` (the EMA generator's arrays and the step)
 beside the checkpoint's ``manifest.json``, ``validate.json`` and
 ``metrics.jsonl`` (a curriculum run's ``g_ema.npz`` also holds its
@@ -40,6 +43,11 @@ is compared with: ``JAX_ROWS[run]`` where the run (its name without its
 tags: ``_dp<N>``, ``_seed<N>``, ...) has a row of its own, then without a
 ``gate_all`` row of the preset's; else the preset's.
 Rows already in ``--out`` for runs that ``--runs`` does not hold are kept.
+Every row gets ``verdict_diff``, the gates on which the port's validate
+and gate_all disagree (empty when they agree gate for gate), and the
+record gets ``seed_sets``: each run with ``_seed<N>`` siblings, held with
+them to the JAX row by the rule of ROADMAP Queue 3 (``SEED_METRICS``).
+With no ``--runs``, ``record`` computes only these two again.
 """
 
 from __future__ import annotations
@@ -86,9 +94,11 @@ JAX_ROWS = {
                   "(runs/wgan_presence_mbin3k, 1,024 raw levels) and "
                   "BASELINE.md round 3 (the pair's 3,000-step row: tile KL, "
                   "structural chi2/dof, START cells of 1,024 levels; the "
-                  "corpus's 623); no gate_all row",
+                  "corpus's 623) and its exactly-one section (8.7 decoded "
+                  "STARTs a level); no gate_all row",
         "steps": 3000, "kl": 0.0287, "chi2_per_dof_structural": 457,
-        "start_cells": 865, "start_inv_simpson": 245, "corpus_start_cells": 623,
+        "starts_per_level": 8.7, "start_cells": 865, "start_inv_simpson": 245,
+        "corpus_start_cells": 623,
         "solvable_frac": 0.95703125, "mean_pairwise_hamming": 0.5577974915504456,
         "tile_entropy_nats": 1.3024481326490687},
 }
@@ -100,6 +110,26 @@ GATES_ALL = {"wgan_gp_32": "runs/wgan_base",
              "racetrack_32": "runs/track_cim",
              "race_curriculum_32": "runs/race_curriculum_32"}
 _KEEP = ("g_ema/", "agent_strong/", "agent_weak/")   # kept of a checkpoint
+
+# the metrics a set of seed runs (``<run>`` and ``<run>_seed<N>``) is held to
+# JAX's row by, each as (name, path in a PORT_GATES row, key of JAX's value
+# in JAX_ROWS[set]; None: the value at the path in gate_all's JAX row), by
+# the preset or JAX_ROWS run the set compares with (ROADMAP Queue 3 faults
+# 10 and 11).  toy_dcgan_16's JAX side is five runs: a Mann-Whitney test;
+# the others have one JAX run: the range rule.
+SEED_METRICS = {
+    "toy_dcgan_16": (("identity_kl", "gate_all.gates.identity.kl", "kl"),),
+    "racetrack_32": (("identity_kl", "gate_all.gates.identity.kl", None),),
+    "curriculum_16_joint": (("skillgap_separation",
+                             "gate_all.gates.skillgap.separation", None),),
+    "race_curriculum_32": (("skillgap_separation",
+                            "gate_all.gates.skillgap.separation", None),),
+    "wgan_gp_32_mbin": (
+        ("identity_kl", "gate_all.gates.identity.kl", "kl"),
+        ("starts_per_level", "placement.raw.starts_per_level",
+         "starts_per_level")),
+}
+ALPHA = 0.05
 
 
 def card_line() -> str:
@@ -143,11 +173,68 @@ def _carve(cfg, box: dict) -> None:
     box["carve_s"] = time.perf_counter() - t0
 
 
+def validate_argv(cfg, ckpt: str, device: str | None) -> list[str]:
+    """The port validate's arguments for the final checkpoint ``ckpt`` of a
+    run of ``cfg``: gate_all's n, and for a conditional model
+    ``--fit-calibration`` (so that ``causality_calibrated`` is gated on the
+    shipped path, as ``_gate`` fits the JAX side's)."""
+    return ["--ckpt", ckpt, "--n", "1024",     # tools.gate_all's n
+            *(("--fit-calibration",) if cfg.model.cond_dim > 0 else ()),
+            *(("--device", device) if device else ())]
+
+
+def run_parts(argvs: list[list[str]], ckpt_dir: str, split_s: float | None,
+              max_wall: float | None, label: str = "") -> list[dict]:
+    """Run the commands ``argvs`` one after another (a run and its
+    ``--resume auto``): the first is sent SIGTERM after ``split_s`` seconds
+    (None: it runs to its end, and the next is not started), and whichever
+    part runs at ``max_wall`` seconds after the start is sent SIGTERM and
+    is the last.  A part stopped so writes its checkpoint and exits 0.
+    Returns each part's exit code, how it was stopped, its wall time and
+    the step of the newest checkpoint under ``ckpt_dir`` after it."""
+    import numpy as np
+    from levelgan_torch.lio.checkpoint import all_checkpoints
+
+    t0 = time.perf_counter()
+    parts = []
+    for part, argv in enumerate(argvs):
+        t_part = time.perf_counter()
+        split = split_s if part == 0 else None
+        wall = (None if max_wall is None
+                else max(0.0, max_wall - (t_part - t0)))
+        by_wall = wall is not None and (split is None or wall <= split)
+        proc = subprocess.Popen(argv, cwd=HERE)
+        stopped = False
+        try:
+            proc.wait(timeout=wall if by_wall else split)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGTERM)
+            stopped = True
+            proc.wait()
+        ckpts = all_checkpoints(ckpt_dir)
+        step = None
+        if ckpts:
+            with np.load(os.path.join(ckpts[-1], "arrays.npz")) as z:
+                step = int(z["step"])
+        parts.append({"rc": proc.returncode, "sigterm": stopped,
+                      "max_wall": stopped and by_wall,
+                      "wall_s": time.perf_counter() - t_part,
+                      "checkpoint_step": step})
+        print(f"[whole_runs] {label} part {part}: rc {proc.returncode}, "
+              f"SIGTERM {stopped}{' (max wall)' if stopped and by_wall else ''}"
+              f", checkpoint at step {step}", flush=True)
+        if proc.returncode != 0 or not stopped or by_wall:
+            break
+    return parts
+
+
 def train_one(name: str, work: str, out: str, split_s: float,
-              sets: list[str], device: str | None, tag: str = "") -> dict:
+              sets: list[str], device: str | None, tag: str = "",
+              max_wall: float | None = None) -> dict:
     """Train ``name`` (two runs if it is in SPLIT) with the ``--set``
-    overrides ``sets`` (none for a whole run), validate on the card (or
-    ``device``), keep the small artifacts in ``out/<name><tag>``."""
+    overrides ``sets`` (none for a whole run), stopped at ``max_wall``
+    seconds if it runs that long, validate on the card (or ``device``),
+    keep the small artifacts in ``out/<name><tag>``."""
     import numpy as np
     from levelgan_torch.cli import validate
     from levelgan_torch.lio.checkpoint import all_checkpoints
@@ -155,51 +242,36 @@ def train_one(name: str, work: str, out: str, split_s: float,
     run_dir = os.path.join(work, name + tag)
     shutil.rmtree(run_dir, ignore_errors=True)
     sets = [f"io.log_every={LOG_EVERY}", *sets]
+    cfg = _config(name, sets)
     base = _cli("levelgan_torch.cli.train", "--preset", name, "--out",
                 run_dir, *(a for kv in sets for a in ("--set", kv)),
                 *(("--device", device) if device else ()))
     box: dict = {}
-    carver = threading.Thread(target=_carve, args=(_config(name, sets), box))
-    row = {"preset": name, "sets": sets, "parts": []}
+    carver = threading.Thread(target=_carve, args=(cfg, box))
+    row = {"preset": name, "sets": sets, "target_steps": cfg.train.steps,
+           **({"max_wall_s": max_wall} if max_wall is not None else {})}
     t0 = time.perf_counter()
-    for part, argv in enumerate((base, base + ["--resume", "auto"])):
-        t_part = time.perf_counter()
-        proc = subprocess.Popen(argv, cwd=HERE)
-        if part == 0:
-            carver.start()
-        stopped = False
-        try:
-            proc.wait(timeout=split_s if name in SPLIT and part == 0
-                      else None)
-        except subprocess.TimeoutExpired:
-            proc.send_signal(signal.SIGTERM)
-            stopped = True
-            proc.wait()
-        ckpts = all_checkpoints(os.path.join(run_dir, "ckpt"))
-        step = None
-        if ckpts:
-            with np.load(os.path.join(ckpts[-1], "arrays.npz")) as z:
-                step = int(z["step"])
-        row["parts"].append({"rc": proc.returncode, "sigterm": stopped,
-                             "wall_s": time.perf_counter() - t_part,
-                             "checkpoint_step": step})
-        print(f"[whole_runs] {name} part {part}: rc {proc.returncode}, "
-              f"SIGTERM {stopped}, checkpoint at step {step}", flush=True)
-        if proc.returncode != 0 or not stopped:
-            break
+    carver.start()
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    row["parts"] = run_parts(
+        [base, base + ["--resume", "auto"]], ckpt_dir,
+        split_s if name in SPLIT else None, max_wall, name + tag)
     row["train_wall_s"] = time.perf_counter() - t0
     carver.join()
+    step = row["parts"][-1]["checkpoint_step"]
     if row["parts"][-1]["rc"] != 0 or step is None:
         return row
-    final = all_checkpoints(os.path.join(run_dir, "ckpt"))[-1]
-    row["steps"] = row["parts"][-1]["checkpoint_step"]
+    final = all_checkpoints(ckpt_dir)[-1]
+    row["steps"] = step
+    if step < cfg.train.steps:
+        row["stopped_short"] = (f"--max-wall {max_wall} s stopped the run "
+                                f"at step {step} of {cfg.train.steps}")
     args = validate.build_parser().parse_args(
-        ["--ckpt", final, "--n", "1024",   # tools.gate_all's n
-         *(("--device", device) if device else ())])
+        validate_argv(cfg, final, device))
     t1 = time.perf_counter()
     report, levels = validate.validate(args, ds=box["ds"])
     row["validate_wall_s"] = time.perf_counter() - t1
-    if "raw" in levels and levels["raw"].ndim == 3:    # tile levels
+    if cfg.model.family == "tile":
         raw = levels["raw"][:PLACEMENT_N]
         row["placement"] = {
             "raw": start_placement(raw),
@@ -214,7 +286,9 @@ def train_one(name: str, work: str, out: str, split_s: float,
         np.savez(os.path.join(dest, "g_ema.npz"),
                  **{k: z[k] for k in z.files if k.startswith(_KEEP)},
                  step=z["step"])
-    shutil.copy(os.path.join(final, "manifest.json"), dest)
+    for kept in ("manifest.json", "cond_calibration.json"):
+        if os.path.exists(os.path.join(final, kept)):
+            shutil.copy(os.path.join(final, kept), dest)
     shutil.copy(os.path.join(run_dir, "metrics.jsonl"), dest)
     print(f"[whole_runs] {name}{tag}: {row['steps']} steps in "
           f"{row['train_wall_s']:.1f} s; validate "
@@ -233,7 +307,8 @@ def cmd_train(a) -> int:
     print(f"card: {summary['card']}", flush=True)
     rc = 0
     for name in a.presets:
-        row = train_one(name, a.work, a.out, a.split, a.set, a.device, a.tag)
+        row = train_one(name, a.work, a.out, a.split, a.set, a.device, a.tag,
+                        a.max_wall)
         row["card"] = summary["card"]
         summary["rows"][name + a.tag] = row
         with open(summary_path, "w") as fh:
@@ -328,7 +403,92 @@ def _gate(name: str, preset: str, src: str, work: str) -> dict:
         return json.load(fh)
 
 
+def _why(p: dict | None, g: dict | None) -> str | None:
+    """Why the port's gate ``p`` and gate_all's ``g`` disagree, or None."""
+    if p is None or g is None:
+        return f"only {'gate_all' if p is None else 'the port'} has it"
+    if bool(p.get("informative")) != bool(g.get("informative")):
+        return "informative on one side only"
+    if p["passed"] != g["passed"]:
+        return "passed differs"
+    return None
+
+
+def verdict_diff(port: dict, gate_all: dict) -> list[dict]:
+    """The gates (``{name: {"passed", ...numbers}}`` of each tool) where the
+    port's validate and ``tools.gate_all`` disagree: one side lacks the
+    gate, it is informative (recorded, not rolled up: a curriculum's
+    identity and positional gates) on one side only, or its ``passed``
+    differs.  Each entry holds both sides' gates; an empty list means the
+    two tools agree gate for gate."""
+    return [{"gate": k, "why": why, "port": port.get(k),
+             "gate_all": gate_all.get(k)}
+            for k in [*port, *(k for k in gate_all if k not in port)]
+            if (why := _why(port.get(k), gate_all.get(k)))]
+
+
+def _at(row: dict, path: str):
+    for key in path.split("."):
+        row = row.get(key) if isinstance(row, dict) else None
+    return row
+
+
+def seed_sets(rows: list[dict]) -> dict:
+    """For each run with ``_seed<N>`` siblings among ``rows``: each metric
+    of SEED_METRICS per run, their range, JAX's value (or five values) and
+    the verdict, seed spread or a shift, by the rule written in ROADMAP
+    Queue 3 before the runs: with one JAX run, spread iff JAX's value lies
+    within the port runs' range; with five (toy_dcgan_16), the exact
+    two-sided Mann-Whitney test at ALPHA."""
+    import re
+    by_run = {r["run"]: r for r in rows}
+    bases = sorted({m.group(1) for r in rows
+                    if (m := re.fullmatch(r"(.+)_seed\d+", r["run"]))})
+    out = {}
+    for base in bases:
+        runs = sorted((n for n in by_run if re.fullmatch(
+            re.escape(base) + r"_seed\d+", n)),
+            key=lambda n: int(n.rsplit("_seed", 1)[1]))
+        runs = [base] * (base in by_run) + runs
+        first = by_run[runs[0]]
+        key = jax_row_key(base) or first["preset"]
+        if key not in SEED_METRICS:
+            continue
+        jax_row = first["jax"]
+        metrics, verdicts = {}, []
+        for name, path, jax_key in SEED_METRICS[key]:
+            vals = {n: _at(by_run[n], path) for n in runs}
+            port = [v for v in vals.values() if v is not None]
+            jax = JAX_ROWS[key][jax_key] if jax_key else _at(jax_row, path)
+            m = {"path": path, "port": vals,
+                 "range": [min(port), max(port)] if port else None,
+                 "jax": jax}
+            if isinstance(jax, list):
+                from scipy.stats import mannwhitneyu
+                mw = mannwhitneyu(port, jax, method="exact")
+                p = float(mw.pvalue)
+                m.update(rule=f"exact two-sided Mann-Whitney, alpha {ALPHA}",
+                         u=float(mw.statistic), u_of=len(port) * len(jax),
+                         p=p, verdict="shift" if p < ALPHA else "seed spread")
+            else:
+                m.update(rule="seed spread iff JAX's value lies within the "
+                              "port runs' range",
+                         verdict=("seed spread" if port and jax is not None
+                                  and min(port) <= jax <= max(port)
+                                  else "shift"))
+            metrics[name] = m
+            verdicts.append(m["verdict"])
+        out[base] = {"runs": runs, "jax_source": jax_row.get("source")
+                     or jax_row.get("gate_all", {}).get("ckpt"),
+                     "metrics": metrics,
+                     "verdict": ("shift" if "shift" in verdicts
+                                 else "seed spread")}
+    return out
+
+
 def cmd_record(a) -> int:
+    if a.runs and a.work is None:
+        raise SystemExit("record --runs needs --work")
     rows_in = {}
     for runs in a.runs:
         with open(os.path.join(runs, "runs.json")) as fh:
@@ -354,7 +514,10 @@ def cmd_record(a) -> int:
         rows.append({
             "run": name, "preset": row["preset"],
             "sets": row.get("sets", [f"io.log_every={LOG_EVERY}"]),
-            "steps": row["steps"], "card": row["card"],
+            "steps": row["steps"],
+            **{k: row[k] for k in ("target_steps", "max_wall_s",
+                                   "stopped_short") if k in row},
+            "card": row["card"],
             "train_wall_s": row["train_wall_s"], "parts": row["parts"],
             "port_validate": {"device": port["device"],
                               "passed": port["passed"],
@@ -378,11 +541,15 @@ def cmd_record(a) -> int:
         new = {r["run"]: r for r in rows}
         rows = ([new.pop(r["run"], r) for r in old]
                 + [r for r in rows if r["run"] in new])
+    for r in rows:      # old rows too, from their stored gates
+        r["verdict_diff"] = verdict_diff(r["port_validate"]["gates"],
+                                         r["gate_all"]["gates"])
     doc = {"what": "whole training runs of the port on the card, gated by "
                    "the port's validate on the card and by the JAX "
                    "package's tools.gate_all on the CPU (default "
                    "thresholds)",
-           "script": "whole_runs.py", "rows": rows}
+           "script": "whole_runs.py", "rows": rows,
+           "seed_sets": seed_sets(rows)}
     with open(a.out, "w") as fh:
         json.dump(doc, fh, indent=2)
         fh.write("\n")
@@ -405,12 +572,19 @@ def main(argv=None) -> int:
                         "run; whole runs take none)")
     t.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    t.add_argument("--max-wall", type=float, default=None, metavar="S",
+                   help="seconds after a run's start at which its part in "
+                        "flight is sent SIGTERM: it writes a checkpoint, "
+                        "and the run is gated at the step it reached")
     t.add_argument("--tag", default="",
                    help="suffix of the rows' names (another seed's run)")
     r = sub.add_parser("record", help="on the CPU: gate_all, PORT_GATES.json")
-    r.add_argument("--runs", nargs="+", required=True,
-                   help="train's --out directories (their rows merge)")
-    r.add_argument("--work", required=True)
+    r.add_argument("--runs", nargs="*", default=[],
+                   help="train's --out directories (their rows merge); "
+                        "none: only verdict_diff and seed_sets are "
+                        "computed again over --out's rows")
+    r.add_argument("--work", default=None,
+                   help="gate_all's work directory (needed with --runs)")
     r.add_argument("--out", default=os.path.join(HERE, "PORT_GATES.json"))
     a = ap.parse_args(argv)
     return cmd_train(a) if a.cmd == "train" else cmd_record(a)
