@@ -113,6 +113,13 @@ Needs one CUDA card (exits non-zero without one, and without the
     update's deviation at the end, the pair's held to PAIR_DRIFT_FACTOR
     times the control's (B cut to 16 where the CPU would take over 60 s,
     printed); the launches of each arm's card run; the pair's warm step;
+9c. the race_drift phase: race_curriculum_32 at full width in bf16 and
+    its f32 control, 8 injected steps from one seeded state on the card
+    and on the CPU, read as pair_drift's arms (each arm held to its
+    RACE_DRIFT_LIMITS), and three faults planted on the card side (a G-loss
+    term dropped, the GRU sigmoid rounded once, the REINFORCE advantage 1%
+    high), each reading printed on a line of its own (the first two must
+    read above the bf16 limits), and cuBLAS's bf16 reductions in f32;
 10. reproducibility: a fresh process runs 3 seeded gumbel_64 steps through
     ``api.train`` three times, and its first run must equal its later ones
     in every array (``first_run_check``); then two such runs here, by
@@ -3927,6 +3934,196 @@ def pair_drift(device, train_counts):
         fail("the mbstd pair drifts from the CPU more than its control")
 
 
+# the race_drift phase: race_curriculum_32 at full width in bf16 (its
+# dtype) and its f32 control, RACE_DRIFT_STEPS injected steps from one
+# seeded state on the card (the K2 core) and on this machine's CPU (its
+# plain version), read as pair_drift reads its arms.  In f32 the card
+# follows the CPU to a few ulps (update deviation 4.5e-5 on an H100); in
+# bf16 the two sides round differently from the first step on and part by
+# 0.019 (mean loss deviation) and 0.042 (update deviation), 1e4x / 950x
+# the control, so the bf16 arm is held to RACE_DRIFT_LIMITS, set between
+# its reading and those of faults planted on the card side alone
+# (RACE_DRIFT_PLANTS, each against the CPU reference of its arm): a G-loss
+# term dropped (the closure prior, in an arm that trains with it: 1.0 /
+# 0.57) and the GRU gates' sigmoid rounded once, torch's, where XLA rounds
+# each op (0.079 / 0.36), must read above a limit; the REINFORCE advantage
+# 1% high (0.020 / 0.043) reads as the honest arm does and is printed, not
+# held.  RACE_DRIFT_VARIANTS are card-side settings read the same way.
+RACE_DRIFT_ARMS = {"bf16": {}, "f32 control": {"model.dtype": "float32"}}
+RACE_DRIFT_STEPS = 8
+# (mean loss deviation, update deviation): the bf16 arm's ceiling, and the
+# f32 control's
+RACE_DRIFT_LIMITS = {"bf16": (0.04, 0.15), "f32 control": (1e-3, 1e-3)}
+RACE_DRIFT_CLOSURE = {"train.w_closure": 0.5}
+
+
+def _plant_closure_dropped():
+    import levelgan_torch.track.train as tt
+    old = tt.closure_penalty
+    tt.closure_penalty = lambda tracks: 0.0 * old(tracks)
+    return lambda: setattr(tt, "closure_penalty", old)
+
+
+def _plant_sigmoid_once():
+    import torch
+    import levelgan_torch.track.models as tm
+    old = tm.sigmoid
+    tm.sigmoid = torch.sigmoid
+    return lambda: setattr(tm, "sigmoid", old)
+
+
+def _plant_advantage_high():
+    import levelgan_torch.track.train as tt
+    old = tt.reinforce_term
+    tt.reinforce_term = lambda adv, *a: old(1.01 * adv, *a)
+    return lambda: setattr(tt, "reinforce_term", old)
+
+
+def _no_reduced_precision_reduction():
+    import torch
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    return lambda: setattr(mm, "allow_bf16_reduced_precision_reduction", old)
+
+
+# settings of the card side read against the bf16 arm's CPU reference, as
+# the plants are (name -> the setting: applies it, returns its undo)
+RACE_DRIFT_VARIANTS = {
+    "cuBLAS bf16 reductions in f32": _no_reduced_precision_reduction}
+# plant -> (the arm's overrides, the plant: applies it, returns its undo;
+# whether the bf16 limits must see it)
+RACE_DRIFT_PLANTS = {
+    "closure prior dropped (w_closure 0.5)": (RACE_DRIFT_CLOSURE,
+                                              _plant_closure_dropped, True),
+    "GRU sigmoid rounded once": ({}, _plant_sigmoid_once, True),
+    "REINFORCE advantage 1% high": ({}, _plant_advantage_high, False)}
+
+
+def race_drift_side(cfg, dev, inputs, plant=None):
+    """``inputs`` [(batch, noise)] as steps of ``cfg`` on ``dev`` from the
+    state of seed 33: (per-step metrics, final parameters of G, D and both
+    drivers, the initial ones); ``plant`` is applied around the steps."""
+    import torch
+    from levelgan_torch.api import step_mode
+    from levelgan_torch.track.train import make_track_curriculum_step
+    from levelgan_torch.train.state import create_state
+
+    def params(st):
+        return [p.detach().float().cpu().clone() for mod in (
+            st.generator, st.critic, st.agent_strong, st.agent_weak)
+            for p in mod.parameters()]
+    state = create_state(cfg, dev, seed=33)
+    p0 = params(state)
+    step = make_track_curriculum_step(cfg)
+    undo = plant() if plant else None
+    mets = []
+    try:
+        with step_mode():
+            for batch, noise in inputs:
+                state, met = step(state, batch.to(dev),
+                                  noise=tree_to(noise, dev))
+                mets.append({k: float(v) for k, v in met.items()
+                             if k != "gen_hist"})
+    finally:
+        if undo:
+            undo()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return mets, params(state), p0
+
+
+def race_drift_reading(card, cpu) -> tuple:
+    """(per-step loss deviations, mean of each step's largest, the update's
+    deviation at the end) of a card run against its CPU reference."""
+    (card_m, card_p, _), (cpu_m, cpu_p, p0) = card, cpu
+    devs = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1.0) for k in b}
+            for a, b in zip(card_m, cpu_m)]
+    num = math.sqrt(sum(float((a - b).double().square().sum())
+                        for a, b in zip(card_p, cpu_p)))
+    den = math.sqrt(sum(float((b - z).double().square().sum())
+                        for b, z in zip(cpu_p, p0)))
+    return devs, statistics.mean(max(d.values()) for d in devs), num / den
+
+
+def race_drift(device, train_counts):
+    """The race_drift phase (see RACE_DRIFT_ARMS): prints every step's loss
+    deviations and the update's for the bf16 arm and its f32 control, and
+    each planted fault's and variant's reading on a line of its own; fails
+    when an arm drifts past its RACE_DRIFT_LIMITS, when a plant the limits
+    must see reads within them, or when the K2 core did not launch on the
+    card."""
+    import torch
+    from levelgan_torch.config import preset
+    from levelgan_torch.track.data import synthetic_tracks
+    from levelgan_torch.track.train import draw_track_noise
+
+    base = preset("race_curriculum_32").override(
+        **{"train.batch_size": B_TRAIN})
+    m, t = base.model, base.train
+    g = torch.Generator().manual_seed(37)
+    corpus = torch.from_numpy(synthetic_tracks(512, m.n_segments, seed=41))
+    inputs = [(corpus[torch.randint(0, len(corpus), (t.n_critic, B_TRAIN),
+                                    generator=g)],
+               draw_track_noise(base, t.n_critic, B_TRAIN, "cpu", g))
+              for _ in range(RACE_DRIFT_STEPS)]
+    cpu = torch.device("cpu")
+    refs, res = {}, {}
+    for name, over in (*RACE_DRIFT_ARMS.items(),
+                       ("closure", RACE_DRIFT_CLOSURE)):
+        cfg = base.override(**over)
+        t0 = time.perf_counter()
+        refs[name] = race_drift_side(cfg, cpu, inputs)
+        cpu_s = time.perf_counter() - t0
+        if name == "closure":
+            continue
+        reset_counts()
+        card = race_drift_side(cfg, device, inputs)
+        train_counts[f"race_curriculum_32 race_drift {name}"] = read_counts()
+        devs, loss, upd = race_drift_reading(card, refs[name])
+        res[name] = (loss, upd)
+        print(f"  {name} (B = {B_TRAIN}, {RACE_DRIFT_STEPS} steps, CPU side "
+              f"{cpu_s:.1f} s): loss deviation a step "
+              + " ".join("{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+                         + "}" for d in devs)
+              + f"; mean {loss:.4g}; update deviation at the end {upd:.4g};"
+              f" launches "
+              f"{train_counts[f'race_curriculum_32 race_drift {name}']}")
+    (b_loss, b_upd), (c_loss, c_upd) = res["bf16"], res["f32 control"]
+    print(f"  bf16 / f32 control: mean loss deviation {b_loss:.4g} / "
+          f"{c_loss:.4g}, update deviation {b_upd:.4g} / {c_upd:.4g} "
+          f"(limits {RACE_DRIFT_LIMITS})")
+    blind = []
+    for plant, (over, apply, seen) in RACE_DRIFT_PLANTS.items():
+        cfg = base.override(**over)
+        ref = refs["closure" if over else "bf16"]
+        _, loss, upd = race_drift_reading(
+            race_drift_side(cfg, device, inputs, apply), ref)
+        caught = (loss > RACE_DRIFT_LIMITS["bf16"][0]
+                  or upd > RACE_DRIFT_LIMITS["bf16"][1])
+        print(f"  planted: {plant}: mean loss deviation {loss:.4g}, update "
+              f"deviation {upd:.4g} ({'above' if caught else 'within'} the "
+              f"bf16 limits)")
+        if seen and not caught:
+            blind.append(plant)
+    for name, apply in RACE_DRIFT_VARIANTS.items():
+        _, loss, upd = race_drift_reading(
+            race_drift_side(base, device, inputs, apply), refs["bf16"])
+        print(f"  variant: bf16 with {name}: mean loss deviation {loss:.4g}"
+              f", update deviation {upd:.4g}")
+    for name in RACE_DRIFT_ARMS:
+        c = train_counts[f"race_curriculum_32 race_drift {name}"]
+        idle = [k for k in ("K2 core fwd", "K2 core bwd") if not c[k]]
+        if idle:
+            fail(f"race_drift {name}: {idle} never launched on the card")
+    for name, (loss, upd) in res.items():
+        if loss > RACE_DRIFT_LIMITS[name][0] or upd > RACE_DRIFT_LIMITS[name][1]:
+            fail(f"race_curriculum_32 {name} drifts from the CPU past "
+                 f"{RACE_DRIFT_LIMITS[name]}")
+    if blind:
+        fail(f"race_drift's limits do not see the planted {blind}")
+
+
 def kernels_line(records, counts, train_records, train_counts,
                  gate_counts=None):
     """One entry per kernel.  The forward kernels' times are summed over
@@ -4018,7 +4215,8 @@ def kernels_line(records, counts, train_records, train_counts,
 
 PHASES = ("build", "parity", "export", "export_repair", "export_cond",
           "export_profile", "train_parity", "k2_core", "train", "train_check",
-          "train_profile", "pair_drift", "repro", "gates", "dp")
+          "train_profile", "pair_drift", "race_drift", "repro", "gates",
+          "dp")
 
 
 def main(argv=()) -> int:
@@ -4163,6 +4361,11 @@ def main(argv=()) -> int:
             pair_drift(device, train_counts)
             warm_steps(preset("wgan_gp_32").override(
                 **PAIR_DRIFT_ARMS["pair"]), device)
+        if phase("race_drift"):
+            print("race drift: race_curriculum_32 in bf16 and its f32 "
+                  f"control, {RACE_DRIFT_STEPS} injected steps on the card "
+                  "and on the CPU, and faults planted on the card side")
+            race_drift(device, train_counts)
         if phase("repro"):
             print("reproducibility: gumbel_64 trained twice from one seed, "
                   "then resumed and stopped by SIGTERM")

@@ -35,6 +35,57 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, _rounded(slope, x.dtype) * x)
 
 
+def _low(x: torch.Tensor) -> bool:
+    return x.dtype in (torch.bfloat16, torch.float16)
+
+
+class _LowSigmoid(torch.autograd.Function):
+    """``jax.nn.sigmoid`` in bf16 as XLA computes it: 1 / (1 + exp(-x)),
+    each op rounded to bf16 (0.0059 gives 0.50390625, not 0.5); the
+    derivative is ``logistic``'s, g * (y * (1 - y)), rounded op by op."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+class _LowTanh(torch.autograd.Function):
+    """``jnp.tanh`` in bf16: the value is torch's; the derivative is
+    ``tanh``'s in JAX, e + e * y with e = g * (1 - y), rounded op by op."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        e = g * (1.0 - y)
+        return e + e * y
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function where the JAX program rounds: in bf16 (or
+    f16) ``_LowSigmoid``, else ``torch.sigmoid``."""
+    return _LowSigmoid.apply(x) if _low(x) else torch.sigmoid(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh, with JAX's derivative in bf16 (or f16) (``_LowTanh``)."""
+    return _LowTanh.apply(x) if _low(x) else torch.tanh(x)
+
+
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                group_size: int = 16, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample GroupNorm over NHWC [B, ..., C]; statistics in at least

@@ -21,9 +21,12 @@ function the JAX package computes):
     n = tanh(in(x) + r * hn(h)),  h' = (1 - z) * n + z * h
 
 (``hr`` and ``hz`` without bias), every Dense output and gate rounded to
-``cfg.dtype``.  The inputs are ``pos_emb`` broadcast over the batch, so
-their three projections are computed once, outside the loop; each step
-makes one matmul of h against the three recurrent kernels side by side.
+``cfg.dtype``; in bf16 the gates' sigmoid is XLA's, 1 / (1 + exp(-x))
+rounded op by op, and the sigmoid and tanh take JAX's derivatives
+(``ops.blocks.sigmoid`` / ``tanh``).  The inputs are ``pos_emb``
+broadcast over the batch, so their three projections are computed once,
+outside the loop; each step makes one matmul of h against the three
+recurrent kernels side by side.
 
 The critic's convs are Flax ``Conv((5,), strides=2, padding='SAME')``: on
 an even length the SAME padding is (1, 2), not torch's symmetric 2.  Each
@@ -43,7 +46,7 @@ from levelgan_torch.config import ModelConfig
 from levelgan_torch.device import torch_dtype
 from levelgan_torch.env.agent import lecun_normal
 from levelgan_torch.models.generator import Dense
-from levelgan_torch.ops.blocks import group_norm, leaky_relu
+from levelgan_torch.ops.blocks import group_norm, leaky_relu, sigmoid, tanh
 from levelgan_torch.track.data import KAPPA_MAX, WIDTH_MAX, WIDTH_MIN
 from levelgan_torch.track.ops import closure_project
 
@@ -115,6 +118,28 @@ class TrackGenerator(nn.Module):
                 p.copy_(lecun_normal(tuple(p.shape), generator))
         return self
 
+    def gru_weights(self, dt: torch.dtype):
+        """(the input projections [T, 3H], which do not depend on h, the
+        recurrent kernels side by side [H, 3H], ``hn``'s bias) in ``dt``."""
+        g = self.gru
+        g_in = getattr(g, "in")          # Flax's name, a Python keyword
+        w_i = torch.cat([g.ir.kernel, g.iz.kernel, g_in.kernel], 1).to(dt)
+        b_i = torch.cat([g.ir.bias, g.iz.bias, g_in.bias]).to(dt)
+        x_i = (self.pos_emb.to(dt) @ w_i) + b_i
+        w_h = torch.cat([g.hr.kernel, g.hz.kernel, g.hn.kernel], 1).to(dt)
+        return x_i, w_h, g.hn.bias.to(dt)
+
+    def gru_step(self, h: torch.Tensor, x_t: torch.Tensor, w_h: torch.Tensor,
+                 b_hn: torch.Tensor) -> torch.Tensor:
+        """One ``GRUCell`` step: h [B, H] and the step's input projections
+        x_t [3H] -> h'."""
+        hid = self.cfg.rnn_hidden
+        gh = h @ w_h
+        rz = sigmoid(x_t[:2 * hid] + gh[:, :2 * hid])
+        r, zg = rz[:, :hid], rz[:, hid:]
+        n = tanh(x_t[2 * hid:] + r * (gh[:, 2 * hid:] + b_hn))
+        return (1.0 - zg) * n + zg * h
+
     def forward(self, z: torch.Tensor, cond=None) -> torch.Tensor:
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
@@ -123,23 +148,11 @@ class TrackGenerator(nn.Module):
                 raise ValueError("conditional track generator needs cond")
             emb = leaky_relu(self.cond_embed(cond, dt), cfg.leaky_slope)
             z = torch.cat([z.float(), emb.float()], dim=-1)
-        h = torch.tanh(self.init(z, dt))
-        g, hid = self.gru, cfg.rnn_hidden
-        pos = self.pos_emb.to(dt)
-        # the input projections do not depend on h: [T, 3H], once
-        g_in = getattr(g, "in")          # Flax's name, a Python keyword
-        w_i = torch.cat([g.ir.kernel, g.iz.kernel, g_in.kernel], 1).to(dt)
-        b_i = torch.cat([g.ir.bias, g.iz.bias, g_in.bias]).to(dt)
-        x_i = (pos @ w_i) + b_i
-        w_h = torch.cat([g.hr.kernel, g.hz.kernel, g.hn.kernel], 1).to(dt)
-        b_hn = g.hn.bias.to(dt)
+        h = tanh(self.init(z, dt))
+        x_i, w_h, b_hn = self.gru_weights(dt)
         hs = []
         for t in range(cfg.n_segments):
-            gh = h @ w_h
-            rz = torch.sigmoid(x_i[t, :2 * hid] + gh[:, :2 * hid])
-            r, zg = rz[:, :hid], rz[:, hid:]
-            n = torch.tanh(x_i[t, 2 * hid:] + r * (gh[:, 2 * hid:] + b_hn))
-            h = (1.0 - zg) * n + zg * h
+            h = self.gru_step(h, x_i[t], w_h, b_hn)
             hs.append(h)
         raw = self.emit(torch.stack(hs, dim=1).float(), torch.float32)
         kappa = KAPPA_MAX * torch.tanh(raw[..., 0])

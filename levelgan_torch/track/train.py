@@ -171,6 +171,15 @@ def driver_update(policy, opt, traj, cur):
     return {k: v.detach() for k, v in aux.items()}
 
 
+def reinforce_term(advantage: torch.Tensor, kappa_s: torch.Tensor,
+                   mu: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """G's REINFORCE term: -(advantage * log p(kappa_s | mu)).mean() /
+    n_segments, log p the Gaussian exploration's log-density (up to its
+    constant) of the sampled curvatures [B, T] around the mean ``mu``."""
+    logp = -0.5 * ((kappa_s - mu) / EXPLORE_SIGMA).square().sum(-1)
+    return -(advantage * logp).mean() / n_segments
+
+
 def make_track_curriculum_step(cfg: Config, cond_scale=None):
     """The race curriculum step: ``step_fn(state, batch [n_critic, B, T, 2]
     f32, noise=None, generator=None) -> (state, metrics)``; ``noise`` is
@@ -221,9 +230,8 @@ def make_track_curriculum_step(cfg: Config, cond_scale=None):
         reward = cur.w_play * drive_s - cur.w_anti * drive_w + cur.w_gap * gap
         advantage = reward - state.g_baseline
         gan_term = -critic(mean_tracks, cond_g).mean()
-        logp = -0.5 * ((kappa_s - mean_tracks[..., 0]) / EXPLORE_SIGMA
-                       ).square().sum(-1)
-        rl_term = -(advantage * logp).mean() / m.n_segments
+        rl_term = reinforce_term(advantage, kappa_s, mean_tracks[..., 0],
+                                 m.n_segments)
         g_loss = gan_term + rl_term
         clos = None
         if t.w_closure:

@@ -145,9 +145,10 @@ def test_max_wall_stops_the_last_part_after_a_split(tmp_path):
 # --- record: verdict_diff on every row, seed_sets ---------------------------
 
 def _plant(runs, work, name, preset, port_gates, ga_gates, steps=3000,
-           placement=None):
+           placement=None, device=None):
     """A run of ``runs/runs.json`` with its validate.json, and gate_all's
-    row for it in ``work/<name>/gate_all.json``."""
+    row for it in ``work/<name>/gate_all.json`` (``device``: the run's, as
+    ``train`` marks it; None: a row from before it did, on the card)."""
     os.makedirs(runs / name, exist_ok=True)
     path = runs / "runs.json"
     doc = (json.loads(path.read_text()) if path.exists()
@@ -155,12 +156,13 @@ def _plant(runs, work, name, preset, port_gates, ga_gates, steps=3000,
     doc["rows"][name] = {
         "preset": preset, "sets": ["io.log_every=100"], "steps": steps,
         "card": CARD, "train_wall_s": 1.0,
+        **({"device": device} if device else {}),
         "parts": [{"rc": 0, "sigterm": False, "max_wall": False,
                    "wall_s": 1.0, "checkpoint_step": steps}],
         **({"placement": placement} if placement else {})}
     path.write_text(json.dumps(doc))
     (runs / name / "validate.json").write_text(json.dumps(
-        {"device": "cuda", "passed": True, "gates": port_gates,
+        {"device": device or "cuda", "passed": True, "gates": port_gates,
          "n_levels": 1024}))
     os.makedirs(work / name, exist_ok=True)
     (work / name / "gate_all.json").write_text(json.dumps(
@@ -269,3 +271,70 @@ def test_record_keeps_old_rows_and_diffs_them(tmp_path):
     assert [(e["gate"], e["why"]) for e in dp4["verdict_diff"]] == [
         ("positional", "informative on one side only")]
     assert doc["seed_sets"] == {}
+
+
+# --- CPU runs: their label, JAX's CPU runs, the device rule -----------------
+
+RC_CARD = [8.461, 7.765, 8.025, 9.252, 6.124]     # the card's seeds 0-4
+
+
+def _race_sets(runs, work, cpu):
+    """race_curriculum_32's card seeds 0-4 (rows from before ``train``
+    marked the device) and CPU seeds 0-4 (``_cpu_seed<N>``, ``cpu``)."""
+    for i, (r, c) in enumerate(zip(RC_CARD, cpu)):
+        _plant(runs, work, "race_curriculum_32" + (f"_seed{i}" if i else ""),
+               "race_curriculum_32", _sep(r), _sep(r))
+        _plant(runs, work, f"race_curriculum_32_cpu_seed{i}",
+               "race_curriculum_32", _sep(c), _sep(c), device="cpu")
+
+
+def test_record_labels_cpu_rows_and_compares_jax_cpu_runs(tmp_path):
+    """A CPU run's row reads device cpu and no card, a card run's device
+    cuda and its card; each race_curriculum_32 set carries the exact
+    Mann-Whitney test against JAX's own CPU runs (JAX_CPU, seeds 0-4) and
+    against the other device's set."""
+    cpu = [9.1, 9.6, 8.2, 10.0, 9.3]
+    doc = _record(tmp_path, lambda runs, work: _race_sets(runs, work, cpu))
+    rows = {r["run"]: r for r in doc["rows"]}
+    assert rows["race_curriculum_32_cpu_seed2"]["device"] == "cpu"
+    assert rows["race_curriculum_32_cpu_seed2"]["card"] == (
+        "none: trained on the CPU")
+    assert rows["race_curriculum_32_seed2"]["device"] == "cuda"
+    assert rows["race_curriculum_32_seed2"]["card"] == CARD
+    sets = doc["seed_sets"]
+    assert sets["race_curriculum_32_cpu"]["device"] == "cpu"
+    assert sets["race_curriculum_32"]["device"] == "cuda"
+    card = sets["race_curriculum_32"]["metrics"]["skillgap_separation"]
+    assert card["jax_cpu"]["values"][:3] == [8.879, 9.476, 10.326]
+    assert card["jax_cpu"]["device"] == "cpu"
+    # five card runs against JAX's five (8.724-10.326): 8.461, 7.765,
+    # 8.025, 6.124 lie below all five and 9.252 above three: U = 3 of 25,
+    # p = 2 * 7 / C(10, 5)
+    assert (card["jax_cpu"]["u"], card["jax_cpu"]["u_of"]) == (3.0, 25)
+    assert card["jax_cpu"]["p"] == pytest.approx(14 / 252)
+    cpu_m = sets["race_curriculum_32_cpu"]["metrics"]["skillgap_separation"]
+    assert cpu_m["against"]["race_curriculum_32"]["u_of"] == 25
+    assert card["against"]["race_curriculum_32_cpu"]["p"] == pytest.approx(
+        cpu_m["against"]["race_curriculum_32"]["p"])
+    assert "device_rule" not in sets["race_curriculum_32"]
+
+
+@pytest.mark.parametrize("cpu, verdict", [
+    ([9.1, 9.6, 9.3, 10.0, 9.4], "the card's path"),
+    ([7.1, 6.6, 7.2, 6.0, 7.4], "the code on any device"),
+    ([9.1, 9.6, 8.2, 10.0, 9.3], "undecided"),
+    ([9.0, 8.9, 6.0, 7.0, 9.3], "undecided")])
+def test_record_device_rule(tmp_path, cpu, verdict):
+    """The rule written before the CPU runs were read: the CPU set's median
+    within [8.879, 10.326], the card's below it and p < 0.05 between them;
+    else every CPU run below 8.879 and p < 0.05 against JAX's CPU runs;
+    else undecided (one card run, 9.252, above two CPU runs keeps the
+    third case's p above 0.05; the fourth's median, 8.9, lies in the
+    interval, but its runs overlap the card's)."""
+    doc = _record(tmp_path, lambda runs, work: _race_sets(runs, work, cpu))
+    rule = doc["seed_sets"]["race_curriculum_32_cpu"]["device_rule"]
+    assert rule["card_set"] == "race_curriculum_32"
+    assert rule["interval"] == [8.879, 10.326]
+    assert rule["median_card"] == pytest.approx(8.025)
+    assert rule["median_cpu"] == pytest.approx(sorted(cpu)[2])
+    assert rule["verdict"] == verdict, rule

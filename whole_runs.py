@@ -131,6 +131,26 @@ SEED_METRICS = {
 }
 ALPHA = 0.05
 
+# the JAX package's own whole runs on a CPU at full width, a second
+# reference beside its one TPU run (JAX_ROWS / artifacts/gates_all.json),
+# by the preset and SEED_METRICS name: each seed's value by tools.gate_all
+# at its defaults.  curriculum_16_joint has none: a full-width JAX step of
+# it takes ~11 s on a CPU, 3,000 of them ~9 h a seed.
+JAX_CPU = {
+    "race_curriculum_32": {
+        "source": "python -m levelgan.cli.train --preset race_curriculum_32 "
+                  "--set train.seed=N on a CPU (no TPU), 3,000 steps, then "
+                  "tools.gate_all; seeds 0-2 as recorded to three decimals",
+        "device": "cpu",
+        "skillgap_separation": {0: 8.879, 1: 9.476, 2: 10.326,
+                                3: 8.724448934197426, 4: 9.027813717722893}},
+}
+# the rule of ROADMAP Queue 3 fault 10 that reads a preset's CPU seed set
+# (``<preset>_cpu_seed<N>``) against its card set (``<preset>``,
+# ``<preset>_seed<N>``) and JAX's CPU runs: the metric, and the interval of
+# JAX's CPU seeds 0-2 as the rule was written
+DEVICE_RULE = {"race_curriculum_32": ("skillgap_separation", (8.879, 10.326))}
+
 
 def card_line() -> str:
     try:
@@ -249,6 +269,7 @@ def train_one(name: str, work: str, out: str, split_s: float,
     box: dict = {}
     carver = threading.Thread(target=_carve, args=(cfg, box))
     row = {"preset": name, "sets": sets, "target_steps": cfg.train.steps,
+           "device": device or "cuda",
            **({"max_wall_s": max_wall} if max_wall is not None else {})}
     t0 = time.perf_counter()
     carver.start()
@@ -433,18 +454,53 @@ def _at(row: dict, path: str):
     return row
 
 
+def _mann_whitney(a: list, b: list) -> dict:
+    """The exact two-sided Mann-Whitney test of samples ``a`` and ``b``."""
+    from scipy.stats import mannwhitneyu
+    mw = mannwhitneyu(a, b, method="exact")
+    return {"u": float(mw.statistic), "u_of": len(a) * len(b),
+            "p": float(mw.pvalue)}
+
+
+def device_rule(cpu: list, card: list, jax_cpu: list,
+                interval: tuple) -> dict:
+    """ROADMAP Queue 3 fault 10's reading of a CPU seed set against the
+    card's and JAX's CPU runs (after arms A and B found no fault): *the
+    card's path* if the CPU set's median lies in ``interval``, the card
+    set's below it and the exact test of the two gives p < ALPHA; else *the
+    code on any device* if every CPU run lies below the interval and the
+    exact test against JAX's CPU runs gives p < ALPHA; else undecided."""
+    from statistics import median
+    lo, hi = interval
+    vs_card, vs_jax = _mann_whitney(cpu, card), _mann_whitney(cpu, jax_cpu)
+    if (lo <= median(cpu) <= hi and median(card) < lo
+            and vs_card["p"] < ALPHA):
+        verdict = "the card's path"
+    elif max(cpu) < lo and vs_jax["p"] < ALPHA:
+        verdict = "the code on any device"
+    else:
+        verdict = "undecided"
+    return {"interval": list(interval), "median_cpu": median(cpu),
+            "median_card": median(card), "cpu_vs_card": vs_card,
+            "cpu_vs_jax_cpu": vs_jax, "verdict": verdict}
+
+
 def seed_sets(rows: list[dict]) -> dict:
     """For each run with ``_seed<N>`` siblings among ``rows``: each metric
     of SEED_METRICS per run, their range, JAX's value (or five values) and
     the verdict, seed spread or a shift, by the rule written in ROADMAP
     Queue 3 before the runs: with one JAX run, spread iff JAX's value lies
     within the port runs' range; with five (toy_dcgan_16), the exact
-    two-sided Mann-Whitney test at ALPHA."""
+    two-sided Mann-Whitney test at ALPHA.  Each set also gets its rows'
+    device, the exact test against JAX's CPU runs where JAX_CPU has them
+    (``jax_cpu``) and against every other set of its preset
+    (``against``), and a CPU set ``<set>_cpu`` of a DEVICE_RULE preset
+    that rule's reading against the card set ``<set>`` (``device_rule``)."""
     import re
     by_run = {r["run"]: r for r in rows}
     bases = sorted({m.group(1) for r in rows
                     if (m := re.fullmatch(r"(.+)_seed\d+", r["run"]))})
-    out = {}
+    out, values = {}, {}
     for base in bases:
         runs = sorted((n for n in by_run if re.fullmatch(
             re.escape(base) + r"_seed\d+", n)),
@@ -464,25 +520,49 @@ def seed_sets(rows: list[dict]) -> dict:
                  "range": [min(port), max(port)] if port else None,
                  "jax": jax}
             if isinstance(jax, list):
-                from scipy.stats import mannwhitneyu
-                mw = mannwhitneyu(port, jax, method="exact")
-                p = float(mw.pvalue)
+                mw = _mann_whitney(port, jax)
                 m.update(rule=f"exact two-sided Mann-Whitney, alpha {ALPHA}",
-                         u=float(mw.statistic), u_of=len(port) * len(jax),
-                         p=p, verdict="shift" if p < ALPHA else "seed spread")
+                         **mw, verdict=("shift" if mw["p"] < ALPHA
+                                        else "seed spread"))
             else:
                 m.update(rule="seed spread iff JAX's value lies within the "
                               "port runs' range",
                          verdict=("seed spread" if port and jax is not None
                                   and min(port) <= jax <= max(port)
                                   else "shift"))
+            ref = JAX_CPU.get(key, {})
+            if name in ref and port:
+                m["jax_cpu"] = {"source": ref["source"],
+                                "device": ref["device"],
+                                "values": list(ref[name].values()),
+                                **_mann_whitney(port, list(ref[name].values()))}
             metrics[name] = m
             verdicts.append(m["verdict"])
-        out[base] = {"runs": runs, "jax_source": jax_row.get("source")
+            values[base, name] = (key, port)
+        out[base] = {"runs": runs,
+                     "device": "/".join(sorted({by_run[n].get("device", "cuda")
+                                                for n in runs})),
+                     "jax_source": jax_row.get("source")
                      or jax_row.get("gate_all", {}).get("ckpt"),
                      "metrics": metrics,
                      "verdict": ("shift" if "shift" in verdicts
                                  else "seed spread")}
+    for (base, name), (key, port) in values.items():
+        out[base]["metrics"][name]["against"] = {
+            other: _mann_whitney(port, v)
+            for (other, n2), (k2, v) in values.items()
+            if other != base and n2 == name and k2 == key and port and v}
+    for base in out:     # <set>_cpu against <set>, the same code on the card
+        card_base = base.removesuffix("_cpu")
+        if out[base]["device"] != "cpu" or card_base == base:
+            continue
+        for key, (name, interval) in DEVICE_RULE.items():
+            cpu, card = values.get((base, name)), values.get((card_base, name))
+            jax_cpu = list(JAX_CPU.get(key, {}).get(name, {}).values())
+            if cpu and card and cpu[0] == card[0] == key and jax_cpu:
+                out[base]["device_rule"] = {
+                    "card_set": card_base,
+                    **device_rule(cpu[1], card[1], jax_cpu, interval)}
     return out
 
 
@@ -517,7 +597,9 @@ def cmd_record(a) -> int:
             "steps": row["steps"],
             **{k: row[k] for k in ("target_steps", "max_wall_s",
                                    "stopped_short") if k in row},
-            "card": row["card"],
+            "device": (dev := row.get("device") or port["device"]),
+            "card": (row["card"] if str(dev).startswith("cuda")
+                     else "none: trained on the CPU"),
             "train_wall_s": row["train_wall_s"], "parts": row["parts"],
             "port_validate": {"device": port["device"],
                               "passed": port["passed"],
@@ -542,6 +624,8 @@ def cmd_record(a) -> int:
         rows = ([new.pop(r["run"], r) for r in old]
                 + [r for r in rows if r["run"] in new])
     for r in rows:      # old rows too, from their stored gates
+        r.setdefault("device", r.get("port_validate", {}).get("device",
+                                                               "cuda"))
         r["verdict_diff"] = verdict_diff(r["port_validate"]["gates"],
                                          r["gate_all"]["gates"])
     doc = {"what": "whole training runs of the port on the card, gated by "
