@@ -518,26 +518,21 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def counters():
-    """Each kernel's launch counter: name -> (module, attribute)."""
-    from levelgan_torch.kernels import critic_grad as k2f
-    from levelgan_torch.kernels import gp_penalty as k2
-    from levelgan_torch.kernels import upsample_block as k1
-    from levelgan_torch.kernels import upsample_rows as k1l
-    return {"K1": (k1, "launches"), "K1L": (k1l, "launches"),
-            "K1 bwd": (k1, "bwd_launches"), "K1L bwd": (k1l, "bwd_launches"),
-            "K2 core fwd": (k2, "fwd_launches"),
-            "K2 core bwd": (k2, "bwd_launches"),
-            "K2 fused": (k2f, "launches")}
+# each kernel's launch counter in ``obs.counters``, by its name here
+COUNTERS = {"K1": "k1.fwd_launches", "K1L": "k1l.fwd_launches",
+            "K1 bwd": "k1.bwd_launches", "K1L bwd": "k1l.bwd_launches",
+            "K2 core fwd": "k2.fwd_launches",
+            "K2 core bwd": "k2.bwd_launches", "K2 fused": "k2f.launches"}
 
 
 def reset_counts() -> None:
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
+    from levelgan_torch import obs
+    obs.reset()
 
 
 def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+    from levelgan_torch import obs
+    return {k: obs.counters[n] for k, n in COUNTERS.items()}
 
 
 def warm_card(device, seconds: float = 0.5) -> None:
@@ -697,9 +692,9 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     import numpy as np
     import torch
     from levelgan_torch.cli import export as cli
+    from levelgan_torch import obs
     from levelgan_torch.export import generate, generate_batch
     from levelgan_torch.kernels import upsample_block as k1
-    from levelgan_torch.kernels import upsample_rows as k1l
     from levelgan_torch.lio.checkpoint import save_checkpoint
     from levelgan_torch.models import Generator
 
@@ -707,13 +702,13 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     ckpt = save_checkpoint(os.path.join(workdir, "ckpt"), gen, cfg, step=0)
     out = os.path.join(workdir, "levels.npz")
 
-    k1.launches = k1l.launches = k1.packs = 0
+    obs.reset()
     t0 = time.perf_counter()
     rc = cli.main(["--ckpt", ckpt, "--n", str(n_levels), "--batch",
                    str(batch), "--out", out, "--seed", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"K1": k1.launches, "K1L": k1l.launches}
+    counts = {k: read_counts()[k] for k in ("K1", "K1L")}
     if rc != 0:
         fail(f"export CLI returned {rc}")
 
@@ -732,8 +727,9 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     if counts != expect:
         fail(f"kernel launches {counts} != expected {expect}")
     # the weights never change during an export: one packing per stage
-    if k1.packs != len(fits):
-        fail(f"the export packed stage weights {k1.packs} times, expected "
+    packs = obs.counters["k1.packs"]
+    if packs != len(fits):
+        fail(f"the export packed stage weights {packs} times, expected "
              f"{len(fits)} (once per stage)")
     hist = np.bincount(levels.reshape(-1), minlength=m.n_tiles) / levels.size
     print(f"  exported {n_levels} levels through the CLI in {wall:.3f} s "
@@ -744,13 +740,14 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     # from the checkpoint's state_dict inside generate), without file I/O,
     # packed and unpacked; the CLI's choice must be the faster one
     from levelgan_torch.export import resolve_pack
-    k1.packs = 0
+    obs.reset()
     lps = export_timing(cfg, device, n_levels, batch)
     chosen = resolve_pack(m, None, device)
     print(f"  the CLI exports with pack={chosen}: {lps[chosen]:.1f} levels/s "
           f"against {lps[not chosen]:.1f} (pack={not chosen}); "
-          f"{k1.packs} weight packings in the warm exports (one per stage "
-          "a call: each call builds its generator from the state_dict)")
+          f"{obs.counters['k1.packs']} weight packings in the warm exports "
+          "(one per stage a call: each call builds its generator from the "
+          "state_dict)")
     if lps[chosen] < PACK_SLACK * lps[not chosen]:
         fail(f"the CLI's pack={chosen} is slower than pack={not chosen} by "
              f"more than the run-to-run spread ({PACK_SLACK})")
@@ -1028,8 +1025,6 @@ def export_cond(device, workdir, n_levels=COND_LEVELS, batch=B):
                                               corpus_mean_cond,
                                               level_features)
     from levelgan_torch.export import generate_batch, make_generator
-    from levelgan_torch.kernels import upsample_block as k1
-    from levelgan_torch.kernels import upsample_rows as k1l
     from levelgan_torch.lio.calibration import (apply_calibration,
                                                 fit_from_sweeps,
                                                 save_calibration)
@@ -1061,7 +1056,7 @@ def export_cond(device, workdir, n_levels=COND_LEVELS, batch=B):
         rc = cli.main(["--ckpt", ckpt, "--n", str(n_levels), "--batch",
                        str(batch), "--out", out, "--seed", "0", *extra])
         wall = time.perf_counter() - t0
-        counts = {"K1": k1.launches, "K1L": k1l.launches}
+        counts = {k: read_counts()[k] for k in ("K1", "K1L")}
         if rc != 0:
             fail(f"conditional export ({name}) returned {rc}")
         levels = np.load(out)["levels"]
@@ -1120,9 +1115,9 @@ def profile_export(cfg, device, batches=4):
     ``export_timing``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from levelgan_torch import obs
     from levelgan_torch.export import (generate_batch, make_generator,
                                        resolve_pack)
-    from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.models import Generator
 
     m = cfg.model
@@ -1135,7 +1130,7 @@ def profile_export(cfg, device, batches=4):
     pack = resolve_pack(m, None, device)
     generate_batch(gen, cfg, zs[-1], generator=g, pack=pack)   # warm-up
     torch.cuda.synchronize()
-    k1.packs = 0
+    obs.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1143,8 +1138,9 @@ def profile_export(cfg, device, batches=4):
             generate_batch(gen, cfg, z, generator=g, pack=pack)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / batches
-    if k1.packs:
-        fail(f"{k1.packs} weight packings in {batches} warm export batches")
+    packs = obs.counters["k1.packs"]
+    if packs:
+        fail(f"{packs} weight packings in {batches} warm export batches")
 
     rows = device_rows(prof)
     if not rows:

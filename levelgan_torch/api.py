@@ -70,19 +70,21 @@ On rank 0 only: ``io.render_every`` writes 16 levels (or tracks) of the
 EMA generator, sampled at ``seed=step`` (condition 0.25 in every feature
 of a conditional model), as ``levels_<step>.png`` (``tracks_<step>.png``)
 in ``io.out_dir`` (a ``.npz`` beside the name where PIL is absent).
-``io.profile`` traces the JAX package's window at one step a dispatch
-(from the second step of the run to its thirteenth) with
-``torch.profiler``, CPU and CUDA activities, into
-``<io.profile_dir or out_dir/profile>/trace.json`` (a Chrome trace); a
-run that ends, fails or is stopped inside the window writes the trace
-on its way out.  ``io.tensorboard`` gives every logged scalar and the
-probe's to a ``SummaryWriter`` at ``out_dir/tb`` (JSONL only, with a
-notice, where ``tensorboard`` is not installed).
+``io.profile`` records the port's own window (from the second step of
+the run to its thirteenth) with ``torch.profiler``, CPU and CUDA
+activities, into ``<io.profile_dir or out_dir/profile>/trace.json`` (a
+Chrome trace) with the program's spans (``obs``: ``train.inputs`` and
+``train.step`` a step, and the layers inside the step); a run that ends,
+fails or is stopped inside the window writes the trace on its way out.
+``io.tensorboard`` gives every logged scalar and the probe's to a
+``SummaryWriter`` at ``out_dir/tb`` (JSONL only, with a notice, where
+``tensorboard`` is not installed).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import signal
@@ -92,6 +94,7 @@ import time
 import numpy as np
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
 from levelgan_torch.data.dataset import LevelDataset
@@ -115,8 +118,8 @@ from levelgan_torch.train.wgan_gp import draw_step_noise, make_wgan_gp_step
 
 _DATA_TAG = 0x0DA7A          # separates the step streams from other seeds
 _PROBE_TAG = 0x9B0BE         # the quality probe's stream
-# io.profile's window, the JAX package's at one step a dispatch: the trace
-# starts once this many steps of the run are done and stops at the second
+# io.profile's window: the trace starts once this many steps of the run
+# are done and stops at the second
 PROFILE_WINDOW = (1, 13)
 RENDER_N = 16                # levels (or tracks) a render
 _STEPS = {"gan": make_gan_step, "wgan_gp": make_wgan_gp_step,
@@ -136,9 +139,17 @@ def _check_loss(cfg: Config) -> None:
 
 
 def make_step_fn(cfg: Config, cond_scale=None):
-    """The train step of ``cfg``'s family and loss."""
+    """The train step of ``cfg``'s family and loss, inside a ``train.step``
+    span whose id is the number of the step it makes."""
     steps = _TRACK_STEPS if cfg.model.family == "track" else _STEPS
-    return steps[cfg.train.loss](cfg, cond_scale=cond_scale)
+    inner = steps[cfg.train.loss](cfg, cond_scale=cond_scale)
+
+    @functools.wraps(inner)
+    def step_fn(state, *args, **kwargs):
+        with obs.span("train.step", id=state.step + 1):
+            return inner(state, *args, **kwargs)
+
+    return step_fn
 
 
 def make_dataset(cfg: Config):
@@ -231,11 +242,12 @@ def step_inputs(cfg: Config, corpus: torch.Tensor, step: int, device):
     batch's indices and draws from ``step_generator``, then this rank's
     slice of each (``mesh.shard_tree``; the whole of them in one
     process)."""
-    rng = step_generator(cfg, step, device)
-    batch = sample_batch(corpus, cfg, rng)
-    noise = draw_noise(cfg, batch, rng)
-    axis = 0 if cfg.train.loss == "gan" else 1
-    return mesh.shard(batch, axis), mesh.shard_tree(noise)
+    with obs.span("train.inputs", id=step + 1):
+        rng = step_generator(cfg, step, device)
+        batch = sample_batch(corpus, cfg, rng)
+        noise = draw_noise(cfg, batch, rng)
+        axis = 0 if cfg.train.loss == "gan" else 1
+        return mesh.shard(batch, axis), mesh.shard_tree(noise)
 
 
 def _state_tensors(state) -> dict:
@@ -449,13 +461,6 @@ class _ProfileWindow:
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.start()
 
-    def span(self, step: int):
-        """A ``step_<step>`` range in the trace around one step (nothing
-        outside the window)."""
-        if self._prof is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(f"step_{step:08d}")
-
     def after_step(self, done: int) -> None:
         if self._prof is not None and done >= self.last:
             self.close()
@@ -528,10 +533,9 @@ def _train(cfg: Config, dev: torch.device, echo: bool) -> dict:
                 stopped = True
                 break
             profile.before_step(i)
-            with profile.span(i + 1):
-                batch, noise = step_inputs(cfg, corpus, i, dev)
-                with step_mode(io.debug_nans):
-                    state, metrics = step_fn(state, batch, noise=noise)
+            batch, noise = step_inputs(cfg, corpus, i, dev)
+            with step_mode(io.debug_nans):
+                state, metrics = step_fn(state, batch, noise=noise)
             if io.debug_nans:
                 _check_finite(i + 1, metrics)
             gen_hist += metrics.pop("gen_hist")

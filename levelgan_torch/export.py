@@ -24,6 +24,7 @@ import collections
 import numpy as np
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
 from levelgan_torch.device import resolve_device
@@ -182,17 +183,23 @@ def generate_batch(gen: Generator, cfg: Config, z: torch.Tensor, cond=None, *,
     on a conditional model honours the requested goal distance, cond dim
     3); its scores are ``repair_scores`` or drawn from ``repair_rng``.
     """
-    logits = gen(z, cond, plain=plain)
-    ids = decode(sample_head(logits, _export_head(cfg), tau=cfg.model.tau_end,
-                             structural=cfg.model.structural_head,
-                             noise=noise, generator=generator))
-    if repair:
-        target = (cond[:, 3] if repair_placement == "uniform"
-                  and cond is not None and cfg.model.cond_dim >= 4 else None)
-        ids = ensure_start_goal(ids, logits, placement=repair_placement,
-                                target_dist=target, exactly_one=exactly_one,
-                                scores=repair_scores, generator=repair_rng)
-    return pack_levels(ids, tile_bits(cfg.model.n_tiles)) if pack else ids
+    with obs.span("export.generator"):
+        logits = gen(z, cond, plain=plain)
+    with obs.span("export.head"):
+        ids = decode(sample_head(logits, _export_head(cfg),
+                                 tau=cfg.model.tau_end,
+                                 structural=cfg.model.structural_head,
+                                 noise=noise, generator=generator))
+        if repair:      # inside the head's span until it has its own
+            target = (cond[:, 3] if repair_placement == "uniform"
+                      and cond is not None and cfg.model.cond_dim >= 4
+                      else None)
+            ids = ensure_start_goal(ids, logits, placement=repair_placement,
+                                    target_dist=target,
+                                    exactly_one=exactly_one,
+                                    scores=repair_scores,
+                                    generator=repair_rng)
+        return pack_levels(ids, tile_bits(cfg.model.n_tiles)) if pack else ids
 
 
 @torch.inference_mode()
@@ -200,7 +207,8 @@ def generate_tracks_batch(gen: TrackGenerator, z: torch.Tensor, cond=None, *,
                           repair: bool = False) -> torch.Tensor:
     """One batch of f32 tracks [B, T, 2] on the device; ``repair`` closes
     each track's heading exactly (``closure_project``)."""
-    tracks = gen(z, cond)
+    with obs.span("export.generator"):
+        tracks = gen(z, cond)
     return closure_project(tracks) if repair else tracks
 
 
@@ -229,32 +237,36 @@ class _HostSink:
                                                     + self.levels.shape[1:])
 
     def put(self, row: int, out: torch.Tensor) -> None:
-        if self.dev.type != "cuda":
-            self._write(row, out.numpy())
-            return
-        if not self.free:
-            if len(self.pending) < STAGING:
-                self.free.append(torch.empty(out.shape, dtype=out.dtype,
-                                             pin_memory=True))
-            else:
-                self._take()
-        buf = self.free.pop()
-        k = out.shape[0]
-        self.copy_stream.wait_stream(torch.cuda.current_stream(self.dev))
-        with torch.cuda.stream(self.copy_stream):
-            buf[:k].copy_(out, non_blocking=True)
-        out.record_stream(self.copy_stream)   # freed only after the copy
-        self.pending.append((row, k, buf, self.copy_stream.record_event()))
+        with obs.span("export.put"):
+            if self.dev.type != "cuda":
+                self._write(row, out.numpy())
+                return
+            if not self.free:
+                if len(self.pending) < STAGING:
+                    self.free.append(torch.empty(out.shape, dtype=out.dtype,
+                                                 pin_memory=True))
+                else:
+                    self._take()
+            buf = self.free.pop()
+            k = out.shape[0]
+            self.copy_stream.wait_stream(torch.cuda.current_stream(self.dev))
+            with torch.cuda.stream(self.copy_stream):
+                buf[:k].copy_(out, non_blocking=True)
+            out.record_stream(self.copy_stream)   # freed only after the copy
+            self.pending.append((row, k, buf,
+                                 self.copy_stream.record_event()))
 
     def _take(self) -> None:
         row, k, buf, done = self.pending.popleft()
-        done.synchronize()
+        with obs.span("export.wait"):
+            done.synchronize()
         self._write(row, buf[:k].numpy())
         self.free.append(buf)
 
     def drain(self) -> None:
-        while self.dev.type == "cuda" and self.pending:
-            self._take()
+        with obs.span("export.drain"):
+            while self.dev.type == "cuda" and self.pending:
+                self._take()
 
 
 def generate(cfg: Config, params, n: int, *, seed: int = 0,
@@ -290,35 +302,44 @@ def generate(cfg: Config, params, n: int, *, seed: int = 0,
     m = cfg.model
     pack = False if track else resolve_pack(m, pack, dev)
     batch_size = min(batch_size, n)
-    gen = make_generator(cfg, params, dev)
-    rng = torch.Generator(dev).manual_seed(seed)
-    repair_rng = repair_generator(seed, dev) if repair and not track else None
-    if cond is not None:
-        cond = _on(cond, dev, torch.float32).expand(batch_size, m.cond_dim)
-    z, noise, repair_scores = (_on(z, dev, torch.float32), _on(noise, dev),
-                               _on(repair_scores, dev))
-
-    n_batches = -(-n // batch_size)
-    if track:
-        out = np.empty((n_batches * batch_size, m.n_segments, 2), np.float32)
-    else:
-        out = np.empty((n_batches * batch_size, m.level_size, m.level_size),
-                       np.uint8)
-    sink = _HostSink(out, pack, dev)
-    for lo in range(0, n, batch_size):
-        hi = lo + batch_size
-        zb = (z[lo:hi] if z is not None else
-              torch.randn((batch_size, m.latent_dim), generator=rng,
-                          device=dev))
-        cb = cond[:zb.shape[0]] if cond is not None else None
-        if track:
-            sink.put(lo, generate_tracks_batch(gen, zb, cb, repair=repair))
-            continue
-        sink.put(lo, generate_batch(
-            gen, cfg, zb, cb, noise=_slice_noise(noise, lo, hi),
-            generator=rng, pack=pack, repair=repair,
-            repair_placement=placement, exactly_one=exactly_one,
-            repair_scores=_slice_noise(repair_scores, lo, hi),
-            repair_rng=repair_rng))
-    sink.drain()
+    with obs.span("export.request", id=seed, device=False, n=n,
+                  batch_size=batch_size):
+        with obs.span("export.build", device=False):
+            gen = make_generator(cfg, params, dev)
+            rng = torch.Generator(dev).manual_seed(seed)
+            repair_rng = (repair_generator(seed, dev) if repair and not track
+                          else None)
+            if cond is not None:
+                cond = _on(cond, dev, torch.float32).expand(batch_size,
+                                                            m.cond_dim)
+            z, noise, repair_scores = (_on(z, dev, torch.float32),
+                                       _on(noise, dev),
+                                       _on(repair_scores, dev))
+            n_batches = -(-n // batch_size)
+            if track:
+                out = np.empty((n_batches * batch_size, m.n_segments, 2),
+                               np.float32)
+            else:
+                out = np.empty((n_batches * batch_size, m.level_size,
+                                m.level_size), np.uint8)
+            sink = _HostSink(out, pack, dev)
+        for lo in range(0, n, batch_size):
+            hi = lo + batch_size
+            with obs.span("export.batch"):
+                with obs.span("export.draw"):
+                    zb = (z[lo:hi] if z is not None else
+                          torch.randn((batch_size, m.latent_dim),
+                                      generator=rng, device=dev))
+                cb = cond[:zb.shape[0]] if cond is not None else None
+                if track:
+                    sink.put(lo, generate_tracks_batch(gen, zb, cb,
+                                                       repair=repair))
+                    continue
+                sink.put(lo, generate_batch(
+                    gen, cfg, zb, cb, noise=_slice_noise(noise, lo, hi),
+                    generator=rng, pack=pack, repair=repair,
+                    repair_placement=placement, exactly_one=exactly_one,
+                    repair_scores=_slice_noise(repair_scores, lo, hi),
+                    repair_rng=repair_rng))
+        sink.drain()
     return out[:n]

@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from levelgan_torch import obs
 from levelgan_torch.device import torch_dtype
 from levelgan_torch.kernels import build
 from levelgan_torch.kernels.gp_penalty import NormPenalty
@@ -88,8 +89,6 @@ MAX_DEPTH = 8         # chunks of the ring, at most (the launch's `depth`)
 PAD = 8               # grid row pitch = C + PAD bf16 (csrc: PAD)
 GMAX = 32             # GroupNorm groups of a block's half, at most (csrc)
 _VMEM_BUDGET = 12 * 1024 * 1024   # the JAX package's footprint rule
-
-launches = 0          # kernel launches since the last reset
 
 
 # ---- the plan and the support rule (levelgan/kernels/critic_grad.py) --------
@@ -501,8 +500,7 @@ def critic_trunk_grad(a0: torch.Tensor, layers, head_w: torch.Tensor, *,
             none if probe is None else build.ptr(probe),
             build.stream_ptr(a0.device))
     build.check(err, "critic_trunk_grad")
-    global launches
-    launches += 1
+    obs.count("k2f.launches")
     return dy0
 
 

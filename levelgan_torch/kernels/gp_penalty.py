@@ -42,13 +42,12 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from levelgan_torch import obs
 from levelgan_torch.kernels import build
 from levelgan_torch.ops.blocks import up
 
 EPS = 1e-12
 
-fwd_launches = 0      # forward kernel launches since the last reset
-bwd_launches = 0      # backward kernel launches since the last reset
 
 FWD_VECS = (4, 16)            # float4 loads a thread a chunk, compiled
 FWD_MAX_THREADS = 512         # the kernels' launch bounds
@@ -155,8 +154,7 @@ def norm_penalty_fwd(g2: torch.Tensor):
                                       plan.vec,
                                       build.stream_ptr(g2.device))
     build.check(err, f"norm_penalty_fwd at [{b}, {f}] by {plan}")
-    global fwd_launches
-    fwd_launches += 1
+    obs.count("k2.fwd_launches")
     return pen, norm
 
 
@@ -178,8 +176,7 @@ def norm_penalty_bwd(g2: torch.Tensor, norm: torch.Tensor,
                                       plan.threads,
                                       build.stream_ptr(g2.device))
     build.check(err, f"norm_penalty_bwd at [{b}, {f}] by {plan}")
-    global bwd_launches
-    bwd_launches += 1
+    obs.count("k2.bwd_launches")
     return dg
 
 

@@ -75,6 +75,7 @@ import weakref
 
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.kernels import build
 from levelgan_torch.ops.blocks import (conv_transpose_2x,
                                        conv_transpose_2x_input_grad,
@@ -100,10 +101,6 @@ PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 # the intervals between the forward's ``probe`` stamps (its first block)
 FWD_PHASES = ("set-up", "main loop", "statistics", "stores")
-
-launches = 0          # forward kernel launches since the last reset
-bwd_launches = 0      # backward kernel calls since the last reset
-packs = 0             # weights ``packed`` had to pack since the last reset
 
 
 def fits(h: int, w: int) -> bool:
@@ -170,9 +167,8 @@ def packed(w: torch.Tensor, pack) -> torch.Tensor:
     under ``torch.inference_mode`` carry no counter and are never kept:
     build a model outside it (as ``export.generate`` does) and only run it
     inside."""
-    global packs
     if w.is_inference():
-        packs += 1
+        obs.count("k1.packs")
         return pack(w)
     key = (pack.__name__, w.data_ptr(), w.device, tuple(w.shape),
            tuple(w.stride()))
@@ -182,7 +178,7 @@ def packed(w: torch.Tensor, pack) -> torch.Tensor:
         if (owner is not None and owner.data_ptr() == key[1]
                 and hit[1] == w._version):
             return hit[2]
-    packs += 1
+    obs.count("k1.packs")
     with torch.no_grad():
         out = pack(w)
     for k in [k for k, v in _pack_cache.items() if v[0]() is None]:
@@ -384,8 +380,7 @@ def upsample_block_fwd(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
             none if probe is None else build.ptr(probe),
             build.stream_ptr(x.device))
     build.check(err, "upsample_block_fwd")
-    global launches
-    launches += 1
+    obs.count("k1.fwd_launches")
     return (y, ypre, mu, rstd) if residuals else y
 
 
@@ -458,8 +453,7 @@ def upsample_block_bwd(w: torch.Tensor, gamma: torch.Tensor,
     gamma, beta = gamma.contiguous(), beta.contiguous()
     dy, s1, s2 = bwd_gn_pass(g, ypre, mu, rstd, gamma, beta, slope, gs)
     dx, dgamma, dbeta = bwd_dx_pass(dy, w, s1, s2)
-    global bwd_launches
-    bwd_launches += 1
+    obs.count("k1.bwd_launches")
     return dx, dy, dgamma, dbeta
 
 

@@ -77,6 +77,7 @@ import ctypes
 
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.kernels import build
 from levelgan_torch.kernels.upsample_block import (ROW_BYTES, SMEM_MAX,
                                                    pack_taps_chunks,
@@ -103,9 +104,6 @@ BWD_PHASES = ("set-up", "rows wait", "pass 1", "partials push",
               "halo wait", "dx GEMM", "dx stores", "exit")
 EPS = 1e-5
 SHIFTS = tuple((u, v) for u in (0, 1, 2) for v in (0, 1, 2))
-
-launches = 0          # forward kernel launches since the last reset
-bwd_launches = 0      # backward kernel launches since the last reset
 
 
 def unfold(yf: torch.Tensor) -> torch.Tensor:
@@ -331,8 +329,7 @@ def upsample_block_rows(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
             build.ptr(rstd) if residuals else none, b, h, ww, ci, co, gs,
             stages, ncl, float(slope), EPS, build.stream_ptr(x.device))
     build.check(err, "upsample_rows_stage")
-    global launches
-    launches += 1
+    obs.count("k1l.fwd_launches")
     return (y, yf, mu, rstd) if residuals else y
 
 
@@ -583,8 +580,7 @@ def upsample_rows_bwd(g: torch.Tensor, yf: torch.Tensor, mu: torch.Tensor,
             _group_shape(co, group_size)[1], rt, slots, int(general), ncl,
             float(slope), build.stream_ptr(dev))
     build.check(err, "upsample_rows_bwd")
-    global bwd_launches
-    bwd_launches += 1
+    obs.count("k1l.bwd_launches")
     # each cluster's sums over its samples, added over the clusters
     dgb = part.sum(0)
     return dx, dyf, dgb[1], dgb[0]

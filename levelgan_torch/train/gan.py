@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from levelgan_torch import obs
 from levelgan_torch.config import Config
 from levelgan_torch.data.augment import augment
 from levelgan_torch.data.codec import decode, encode
@@ -154,7 +155,8 @@ def apply_grads(params, grads, opt) -> None:
     first (one collective)."""
     for p, g in zip(params, mesh.all_reduce_grads(grads)):
         p.grad = g
-    opt.step()
+    with obs.span("optim.adam"):
+        opt.step()
 
 
 def make_gan_step(cfg: Config, cond_scale: torch.Tensor | None = None):

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.config import Config
 from levelgan_torch.env.agent import init_agent
 from levelgan_torch.models import Critic, Generator
@@ -191,5 +192,6 @@ def update_ema(cfg: Config, ema: torch.nn.Module, params: torch.nn.Module,
     d_max = cfg.train.ema_decay
     d = min(d_max, (1.0 + step) / (10.0 + step)) if d_max else 0.0
     d = float(torch.tensor(d, dtype=torch.float32))   # f32, as in JAX
-    for e, p in zip(ema.parameters(), params.parameters()):
-        e.mul_(d).add_(p, alpha=1.0 - d)
+    with obs.span("train.ema"):
+        for e, p in zip(ema.parameters(), params.parameters()):
+            e.mul_(d).add_(p, alpha=1.0 - d)

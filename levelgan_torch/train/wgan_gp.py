@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.config import Config
 from levelgan_torch.data.codec import decode
 from levelgan_torch.data.features import level_features
@@ -91,18 +92,23 @@ def make_critic_scan(cfg: Config, gp_impl):
                              f"{len(noises)} noise draws")
         out = {}
         for ids, nz in zip(batch_ids, noises):
-            real, cond = prepare_real(cfg, ids, nz["elements"])
-            with torch.no_grad():
-                fake = sample_head(gen(nz["z"], cond), m.head, tau,
-                                   m.structural_head, noise=nz["noise"])
-            d_real = d_apply(real, cond)
-            d_fake = d_apply(fake, cond)
-            gp = gp_impl(gp_critic, real, fake, cond, nz["eps"])
-            wdist = d_real.mean() - d_fake.mean()
-            loss = -wdist + t.gp_lambda * gp
-            if live:   # freeze_critic_until: params and Adam state held
-                apply_grads(params, torch.autograd.grad(loss, params),
-                             state.opt_d)
+            with obs.span("train.critic"):
+                with obs.span("critic.fake"):
+                    real, cond = prepare_real(cfg, ids, nz["elements"])
+                    with torch.no_grad():
+                        fake = sample_head(gen(nz["z"], cond), m.head, tau,
+                                           m.structural_head,
+                                           noise=nz["noise"])
+                with obs.span("critic.loss"):
+                    d_real = d_apply(real, cond)
+                    d_fake = d_apply(fake, cond)
+                    gp = gp_impl(gp_critic, real, fake, cond, nz["eps"])
+                    wdist = d_real.mean() - d_fake.mean()
+                    loss = -wdist + t.gp_lambda * gp
+                if live:   # freeze_critic_until: params and Adam state held
+                    with obs.span("critic.grad"):
+                        grads = torch.autograd.grad(loss, params)
+                    apply_grads(params, grads, state.opt_d)
             out = {"d_loss": loss.detach(), "gp": gp.detach(),
                    "wdist": wdist.detach()}
         return out
@@ -136,24 +142,28 @@ def make_wgan_gp_step(cfg: Config, cond_scale: torch.Tensor | None = None):
         # ---- generator update, against the updated critic --------------
         gen, critic = state.generator, state.critic
         ng = noise["g"]
-        cond_g = level_features(batch_ids[-1]) if m.cond_dim else None
-        logits = gen(ng["z"], cond_g)
-        fake = sample_head(logits, m.head, current_tau(cfg, state.step),
-                           m.structural_head, noise=ng["noise"])
-        g_loss = -critic(fake, cond_g, mbstd_scale_schedule(t, state.step)
-                         ).mean()
-        pres = cmatch = None
-        if t.w_presence:
-            pres = presence_penalty(
-                fake, w_spread=t.presence_spread,
-                w_excess=excess_weight_schedule(t, state.step))
-            g_loss = g_loss + t.w_presence * pres
-        if t.w_cond_match:
-            cmatch = cond_match_loss(logits, cond_g, cond_scale)
-            g_loss = g_loss + t.w_cond_match * cmatch
-        params = list(gen.parameters())
-        apply_grads(params, torch.autograd.grad(g_loss, params),
-                     state.opt_g)
+        with obs.span("train.generator"):
+            with obs.span("g.loss"):
+                cond_g = level_features(batch_ids[-1]) if m.cond_dim else None
+                logits = gen(ng["z"], cond_g)
+                fake = sample_head(logits, m.head,
+                                   current_tau(cfg, state.step),
+                                   m.structural_head, noise=ng["noise"])
+                g_loss = -critic(fake, cond_g,
+                                 mbstd_scale_schedule(t, state.step)).mean()
+                pres = cmatch = None
+                if t.w_presence:
+                    pres = presence_penalty(
+                        fake, w_spread=t.presence_spread,
+                        w_excess=excess_weight_schedule(t, state.step))
+                    g_loss = g_loss + t.w_presence * pres
+                if t.w_cond_match:
+                    cmatch = cond_match_loss(logits, cond_g, cond_scale)
+                    g_loss = g_loss + t.w_cond_match * cmatch
+            params = list(gen.parameters())
+            with obs.span("g.grad"):
+                grads = torch.autograd.grad(g_loss, params)
+            apply_grads(params, grads, state.opt_g)
         update_ema(cfg, state.g_ema, gen, state.step)
         state.step += 1
         metrics = {**it, "g_loss": g_loss.detach(),

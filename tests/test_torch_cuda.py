@@ -7,6 +7,8 @@ Marked ``cuda``: these skip on hosts without an NVIDIA GPU.  On the card:
 import pytest
 import torch
 
+from levelgan_torch import obs
+
 pytestmark = pytest.mark.cuda
 
 # bf16 tolerance: 4 ulps relative plus 2^-6 absolute (see chip_smoke.py)
@@ -47,9 +49,9 @@ def test_k1_matches_plain(cuda, b, h, ci, co, gs):
     from levelgan_torch.kernels import upsample_block as k1
     from levelgan_torch.ops.blocks import upsample_block
     x, w, gamma, beta = _inputs(b, h, ci, co, cuda)
-    n = k1.launches
+    n = obs.counters["k1.fwd_launches"]
     y = k1.upsample_block_fwd(x, w, gamma, beta, group_size=gs)
-    assert k1.launches == n + 1
+    assert obs.counters["k1.fwd_launches"] == n + 1
     _assert_close(y, upsample_block(x, w, gamma, beta, group_size=gs))
 
 
@@ -63,10 +65,10 @@ K1L_SHAPES = [(32, 64, 32), (16, 128, 64), (32, 128, 64)]
 def test_k1l_matches_plain(cuda, b, h, ci, co):
     from levelgan_torch.kernels import upsample_rows as k1l
     x, w, gamma, beta = _inputs(b, h, ci, co, cuda, seed=1)
-    n = k1l.launches
+    n = obs.counters["k1l.fwd_launches"]
     y = k1l.upsample_block_rows(x, w, gamma, beta)
     torch.cuda.synchronize()
-    assert k1l.launches == n + 1
+    assert obs.counters["k1l.fwd_launches"] == n + 1
     _assert_close(y, k1l.upsample_block_rows_plain(x, w, gamma, beta))
 
 
@@ -98,11 +100,11 @@ def test_k1_bwd_matches_plain(cuda, b, h, ci, co, gs):
     _, ypre, mu, rstd = k1.upsample_block_fwd(x, w, gamma, beta,
                                               group_size=gs, residuals=True)
     g = torch.randn(ypre.shape, device=cuda).to(torch.bfloat16)
-    n = k1.bwd_launches
+    n = obs.counters["k1.bwd_launches"]
     got = k1.upsample_block_bwd(w, gamma, beta, mu, rstd, g, ypre,
                                 group_size=gs)
     torch.cuda.synchronize()
-    assert k1.bwd_launches == n + 1
+    assert obs.counters["k1.bwd_launches"] == n + 1
     want = k1.upsample_block_bwd_plain(w, gamma, beta, mu, rstd, g, ypre,
                                        group_size=gs)
     for name, a, r in zip(("dx", "dy", "dgamma", "dbeta"), got, want):
@@ -125,10 +127,10 @@ def _assert_k1l_bwd_matches_plain(args, gs=16):
     """The K1L backward kernel against its plain chain: dx, dyf, dgamma and
     dbeta by SUM_TOL, one launch."""
     from levelgan_torch.kernels import upsample_rows as k1l
-    n = k1l.bwd_launches
+    n = obs.counters["k1l.bwd_launches"]
     got = k1l.upsample_rows_bwd(*args, group_size=gs)
     torch.cuda.synchronize()
-    assert k1l.bwd_launches == n + 1
+    assert obs.counters["k1l.bwd_launches"] == n + 1
     want = k1l.upsample_rows_bwd_plain(*args, group_size=gs)
     for name, a, r in zip(("dx", "dyf", "dgamma", "dbeta"), got, want):
         assert a.dtype == r.dtype and a.shape == r.shape, name
@@ -209,14 +211,15 @@ def test_norm_penalty_plans_that_do_not_fit_raise(cuda, monkeypatch):
     g2 = torch.randn((4, 2048), device=cuda)
     pen, norm = k2.norm_penalty_fwd(g2)
     dg = k2.norm_penalty_bwd(g2, norm, torch.ones(4, device=cuda))
-    n = (k2.fwd_launches, k2.bwd_launches)
+    n = (obs.counters["k2.fwd_launches"], obs.counters["k2.bwd_launches"])
     monkeypatch.setattr(k2, "fwd_plan", lambda *a: k2.FwdPlan(32, 3))
     monkeypatch.setattr(k2, "bwd_plan", lambda *a: k2.BwdPlan(1, 32))
     with pytest.raises(RuntimeError, match="norm_penalty_fwd"):
         k2.norm_penalty_fwd(g2)
     with pytest.raises(RuntimeError, match="norm_penalty_bwd"):
         k2.norm_penalty_bwd(g2, norm, torch.ones(4, device=cuda))
-    assert (k2.fwd_launches, k2.bwd_launches) == n
+    assert (obs.counters["k2.fwd_launches"],
+            obs.counters["k2.bwd_launches"]) == n
     monkeypatch.undo()
     assert torch.equal(k2.norm_penalty_fwd(g2)[0], pen)
     assert torch.equal(
@@ -261,10 +264,10 @@ def test_k2_fused_matches_plain(cuda, b, m0, chans, has_gn, gs):
     from levelgan_torch.kernels import critic_grad as k2f
     a0, layers, head_w = _trunk_inputs(b, m0, chans, has_gn, cuda)
     a0 = a0.to(torch.bfloat16)
-    n = k2f.launches
+    n = obs.counters["k2f.launches"]
     got = k2f.critic_trunk_grad(a0, layers, head_w, group_size=gs)
     torch.cuda.synchronize()
-    assert k2f.launches == n + 1
+    assert obs.counters["k2f.launches"] == n + 1
     assert got.shape == a0.shape and got.dtype == torch.bfloat16
     want = k2f.critic_trunk_grad_plain(a0, layers, head_w, group_size=gs)
     _assert_samples_close(got, want)
@@ -340,11 +343,11 @@ def test_k2_fused_refused_cluster_launch_raises(cuda, monkeypatch):
     a0 = a0.to(torch.bfloat16)
     before = k2f.critic_trunk_grad(a0, layers, head_w)
     assert k2f.smem_layout(16, (64, 128, 256), 12)["total"] > k2f.MAX_SMEM
-    n = k2f.launches
+    n = obs.counters["k2f.launches"]
     monkeypatch.setattr(k2f, "ring_depth", lambda *a: 12)
     with pytest.raises(RuntimeError, match="critic_trunk_grad"):
         k2f.critic_trunk_grad(a0, layers, head_w)
-    assert k2f.launches == n
+    assert obs.counters["k2f.launches"] == n
     monkeypatch.undo()
     assert torch.equal(k2f.critic_trunk_grad(a0, layers, head_w), before)
 
@@ -352,7 +355,7 @@ def test_k2_fused_refused_cluster_launch_raises(cuda, monkeypatch):
 def test_k2_fused_raises_for_f32_and_bad_shapes(cuda):
     from levelgan_torch.kernels import critic_grad as k2f
     a0, layers, head_w = _trunk_inputs(2, 8, (64, 128), True, cuda)
-    n = k2f.launches
+    n = obs.counters["k2f.launches"]
     with pytest.raises(ValueError, match="bf16"):
         k2f.critic_trunk_grad(a0, layers, head_w)            # f32 a0
     a0 = a0.to(torch.bfloat16)
@@ -363,7 +366,7 @@ def test_k2_fused_raises_for_f32_and_bad_shapes(cuda):
     narrow = _trunk_inputs(2, 8, (32, 64), True, cuda)
     with pytest.raises(ValueError, match="multiples of 64"):
         k2f.critic_trunk_grad(narrow[0].to(torch.bfloat16), *narrow[1:])
-    assert k2f.launches == n
+    assert obs.counters["k2f.launches"] == n
 
 
 def test_fused_gp_matches_plain_gp_at_wgan_gp_32(cuda):
@@ -384,10 +387,10 @@ def test_fused_gp_matches_plain_gp_at_wgan_gp_32(cuda):
     fake = torch.softmax(torch.randn(shape, generator=g, device=cuda), -1)
     eps = torch.rand((16, 1, 1, 1), generator=g, device=cuda)
     params = list(critic.parameters())
-    n = k2f.launches
+    n = obs.counters["k2f.launches"]
     val = k2f.gradient_penalty_fused(critic, real, fake, None, eps)
     grads = torch.autograd.grad(val, params, allow_unused=True)
-    assert k2f.launches == n + 1
+    assert obs.counters["k2f.launches"] == n + 1
     ref = gradient_penalty(critic, real, fake, None, eps)
     ref_g = torch.autograd.grad(ref, params, allow_unused=True)
     assert abs(float(val.detach()) - float(ref.detach())) <= 0.02 * abs(
@@ -408,8 +411,6 @@ def test_kernel_generator_backward_reaches_every_parameter(cuda):
     import dataclasses
 
     from levelgan_torch.config import preset
-    from levelgan_torch.kernels import upsample_block as k1
-    from levelgan_torch.kernels import upsample_rows as k1l
     from levelgan_torch.models import Generator
 
     m = preset("gumbel_64").model
@@ -421,11 +422,13 @@ def test_kernel_generator_backward_reaches_every_parameter(cuda):
                     generator=torch.Generator(cuda).manual_seed(1))
     w = torch.randn((8, 64, 64, m.n_tiles), device=cuda,
                     generator=torch.Generator(cuda).manual_seed(2))
-    counts = (k1.bwd_launches, k1l.bwd_launches)
+    counts = (obs.counters["k1.bwd_launches"],
+              obs.counters["k1l.bwd_launches"])
     params = list(gen.parameters())
     got = torch.autograd.grad((gen(z) * w).sum(), params)
     torch.cuda.synchronize()
-    assert (k1.bwd_launches - counts[0], k1l.bwd_launches - counts[1]) == (3, 1)
+    assert (obs.counters["k1.bwd_launches"] - counts[0],
+            obs.counters["k1l.bwd_launches"] - counts[1]) == (3, 1)
     plain = torch.autograd.grad((gen(z, plain=True) * w).sum(), params)
     ref = torch.autograd.grad((gen32(z, plain=True) * w).sum(),
                               list(gen32.parameters()))
@@ -646,11 +649,11 @@ def test_export_from_a_state_dict_packs_each_k1_weight_once(cuda):
     cfg = preset("toy_dcgan_16")
     gen = Generator(cfg.model).init_params(torch.Generator().manual_seed(0))
     n_k1 = sum(k1.fits(4 * 2 ** i, 4 * 2 ** i) for i in range(gen.n_stages))
-    k1.launches = k1.packs = 0
+    obs.reset()
     levels = generate(cfg, gen.state_dict(), 24, batch_size=4, device=cuda)
     assert levels.shape == (24, 16, 16)
-    assert k1.launches == 6 * n_k1 and n_k1 > 0
-    assert k1.packs == n_k1
+    assert obs.counters["k1.fwd_launches"] == 6 * n_k1 and n_k1 > 0
+    assert obs.counters["k1.packs"] == n_k1
 
 
 def test_k1_packing_tells_a_transposed_weight_from_the_weight(cuda):
@@ -881,10 +884,10 @@ def test_k1l_bwd_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         k1l.upsample_rows_bwd(*args)
     monkeypatch.setattr(k1l, "max_bwd_clusters", lambda *a: 16)
-    n = k1l.bwd_launches
+    n = obs.counters["k1l.bwd_launches"]
     with pytest.raises(RuntimeError, match="upsample_rows_bwd"):
         k1l.upsample_rows_bwd(*args)
-    assert k1l.bwd_launches == n
+    assert obs.counters["k1l.bwd_launches"] == n
     monkeypatch.undo()
     _assert_k1l_bwd_matches_plain(args)
 

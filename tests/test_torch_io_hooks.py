@@ -51,10 +51,13 @@ def _scalars(tb_dir):
 
 
 def _trace_steps(path):
+    """The steps whose ranges the trace holds: each step's ``train.inputs``
+    and ``train.step`` spans, named with the step's number."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
-    return sorted({int(e["name"][5:]) for e in events
-                   if e.get("name", "").startswith("step_")})
+    return sorted({int(e["name"].split()[1]) for e in events
+                   if e.get("name", "").startswith(("train.inputs ",
+                                                    "train.step "))})
 
 
 @pytest.fixture(scope="module")

@@ -12,9 +12,9 @@ import gc
 import pytest
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.config import PRESET_NAMES, preset
 from levelgan_torch.kernels import upsample_block as k1
-from levelgan_torch.kernels import upsample_rows as k1l
 from levelgan_torch.models import Generator
 from levelgan_torch.ops.blocks import (conv_transpose_2x,
                                        conv_transpose_2x_input_grad)
@@ -281,19 +281,19 @@ def test_packed_tells_a_strided_view_from_its_weight():
 def test_packs_counts_the_misses_only():
     k1._pack_cache.clear()
     w = torch.randn(4, 4, 32, 32)
-    k1.packs = 0
+    obs.reset()
     for _ in range(3):
         k1.packed(w, k1.pack_taps_chunks)
-    assert k1.packs == 1
+    assert obs.counters["k1.packs"] == 1
     with torch.no_grad():
         w.add_(1.0)
     k1.packed(w, k1.pack_taps_chunks)
-    assert k1.packs == 2
+    assert obs.counters["k1.packs"] == 2
     with torch.inference_mode():
         wi = torch.randn(4, 4, 32, 32)
         k1.packed(wi, k1.pack_taps_chunks)
         k1.packed(wi, k1.pack_taps_chunks)
-    assert k1.packs == 4
+    assert obs.counters["k1.packs"] == 4
 
 
 def test_generate_builds_its_generator_outside_inference_mode(monkeypatch):
@@ -332,7 +332,8 @@ def test_wrappers_still_refuse_other_devices_and_run_plain_on_the_cpu():
     x = torch.randn(2, 4, 4, 64, generator=g)
     w = torch.randn(4, 4, 64, 32, generator=g) * 0.05
     gamma, beta = torch.ones(32), torch.zeros(32)
-    n = (k1.launches, k1.bwd_launches, k1l.bwd_launches)
+    n = (obs.counters["k1.fwd_launches"], obs.counters["k1.bwd_launches"],
+         obs.counters["k1l.bwd_launches"])
     y, ypre, mu, rstd = k1.upsample_block_fwd(x, w, gamma, beta,
                                               residuals=True)
     dx, dy, dgamma, dbeta = k1.upsample_block_bwd(w, gamma, beta, mu, rstd,
@@ -340,4 +341,5 @@ def test_wrappers_still_refuse_other_devices_and_run_plain_on_the_cpu():
     assert y.shape == (2, 8, 8, 32) and dx.shape == x.shape
     assert dy.shape == y.shape and dgamma.shape == dbeta.shape == (32,)
     # the plain versions launch nothing
-    assert (k1.launches, k1.bwd_launches, k1l.bwd_launches) == n
+    assert (obs.counters["k1.fwd_launches"], obs.counters["k1.bwd_launches"],
+            obs.counters["k1l.bwd_launches"]) == n

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from levelgan.kernels.upsample_rows import upsample_block_rows_sm
+from levelgan_torch import obs
 from levelgan_torch.config import PRESET_NAMES, preset
 from levelgan_torch.kernels import upsample_block as k1
 from levelgan_torch.kernels import upsample_rows as k1l
@@ -288,10 +289,10 @@ def test_wrapper_on_the_cpu_is_the_plain_chain():
     """A CPU tensor takes the plain chain (gn_act_bwd_folded, then
     conv_rows_bwd_plain), and no kernel launches."""
     x, w, gamma, beta, g, yf, mu, rstd = _residuals(2, 16, 32, 32, 8, seed=3)
-    n = k1l.bwd_launches
+    n = obs.counters["k1l.bwd_launches"]
     got = k1l.upsample_rows_bwd(g, yf, mu, rstd, gamma, beta, w,
                                 group_size=8)
-    assert k1l.bwd_launches == n
+    assert obs.counters["k1l.bwd_launches"] == n
     dyf, dgamma, dbeta = k1l.gn_act_bwd_folded(g, yf, mu, rstd, gamma, beta,
                                                group_size=8)
     want = (k1l.conv_rows_bwd_plain(dyf, w), dyf, dgamma, dbeta)

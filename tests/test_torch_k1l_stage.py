@@ -11,6 +11,7 @@ channels) and with its own index formulas.
 import pytest
 import torch
 
+from levelgan_torch import obs
 from levelgan_torch.config import PRESET_NAMES, preset
 from levelgan_torch.kernels import upsample_block as k1
 from levelgan_torch.kernels import upsample_rows as k1l
@@ -202,10 +203,10 @@ def test_plain_stage_residuals_are_the_plain_pieces():
     w = torch.randn(4, 4, 32, 32, generator=g) * 0.05
     gamma = 1 + 0.1 * torch.randn(32, generator=g)
     beta = 0.1 * torch.randn(32, generator=g)
-    n = k1l.launches
+    n = obs.counters["k1l.fwd_launches"]
     y, yf, mu, rstd = k1l.upsample_block_rows(x, w, gamma, beta,
                                               group_size=8, residuals=True)
-    assert k1l.launches == n
+    assert obs.counters["k1l.fwd_launches"] == n
     yf_p, s1, s2 = k1l.conv_rows_plain(x, w)
     mu_p, rstd_p = k1l.rows_stats(s1, s2, 4 * 16 * 16, group_size=8)
     assert torch.equal(yf, yf_p) and torch.equal(mu, mu_p)

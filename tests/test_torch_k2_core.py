@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from levelgan.kernels.gp_penalty import norm_penalty as j_norm_penalty
+from levelgan_torch import obs
 from levelgan_torch.kernels import gp_penalty as k2
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -145,11 +146,14 @@ def test_norm_penalty_after_mean_matches_jax_vjp(f):
         np.float32)
     pen_j, vjp = jax.vjp(j_norm_penalty, jnp.asarray(g2))
     (dg_j,) = vjp(jnp.full((b,), 1.0 / b, jnp.float32))
-    before = (k2.fwd_launches, k2.bwd_launches)
+    before = (obs.counters["k2.fwd_launches"],
+              obs.counters["k2.bwd_launches"])
     x = torch.from_numpy(g2).requires_grad_()
     pen = k2.NormPenalty.apply(x)
     (dg,) = torch.autograd.grad(pen.mean(), x)
-    assert (k2.fwd_launches, k2.bwd_launches) == before   # CPU: plain
+    # CPU: plain
+    assert (obs.counters["k2.fwd_launches"],
+            obs.counters["k2.bwd_launches"]) == before
     np.testing.assert_allclose(pen.detach().numpy(), np.asarray(pen_j),
                                atol=1e-6, rtol=1e-5)
     np.testing.assert_allclose(dg.numpy(), np.asarray(dg_j), atol=1e-7,

@@ -16,6 +16,7 @@ import torch
 
 from levelgan.kernels.upsample_block import upsample_block_pallas
 from levelgan.kernels.upsample_rows import upsample_block_rows_sm
+from levelgan_torch import obs
 from levelgan_torch.kernels import upsample_block as k1
 from levelgan_torch.kernels import upsample_rows as k1l
 from levelgan_torch.ops.blocks import conv_transpose_2x, upsample_block
@@ -57,9 +58,11 @@ def test_k1_vjp_matches_jax_pallas():
 
     y_j, vjp = jax.vjp(op, *map(jnp.asarray, (x, w, gamma, beta)))
     want = vjp(jnp.asarray(ct))
-    before = (k1.launches, k1.bwd_launches)
+    before = (obs.counters["k1.fwd_launches"], obs.counters["k1.bwd_launches"])
     y_t, got = _port_vjp(k1.UpsampleBlockFn, x, w, gamma, beta, ct, 8)
-    assert (k1.launches, k1.bwd_launches) == before   # CPU: plain versions
+    # CPU: plain versions
+    assert (obs.counters["k1.fwd_launches"],
+            obs.counters["k1.bwd_launches"]) == before
     np.testing.assert_allclose(y_t, np.asarray(y_j), atol=ATOL, rtol=RTOL)
     _assert_grads(got, want)
 
@@ -75,9 +78,9 @@ def test_k1l_vjp_matches_jax_rows():
 
     y_j, vjp = jax.vjp(op, *map(jnp.asarray, (x, w, gamma, beta)))
     want = vjp(jnp.asarray(ct))
-    before = k1l.bwd_launches
+    before = obs.counters["k1l.bwd_launches"]
     y_t, got = _port_vjp(k1l.UpsampleRowsFn, x, w, gamma, beta, ct, 8)
-    assert k1l.bwd_launches == before
+    assert obs.counters["k1l.bwd_launches"] == before
     np.testing.assert_allclose(y_t, np.asarray(y_j), atol=ATOL, rtol=RTOL)
     _assert_grads(got, want)
 
