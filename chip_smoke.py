@@ -15,7 +15,10 @@ Needs one CUDA card (exits non-zero without one, and without the
    residual mode (yf, mu, rstd) against the plain version and two calls
    compared bit for bit; then the K1L stage as the generator calls it at
    B = 1024 and 64 beside the library chain, with the device kernels of one
-   call by name (only the stage kernel may run);
+   call by name (only the stage kernel may run); the fused sampling head
+   (phase ``head``) at [1024, 64, 64, 8] f32: bit for bit against its
+   plain version and ``decode(sample_head(...))``, its time beside its
+   byte bound, the plain version's and the old chain's;
 4. the export path: a gumbel_64 generator with seeded random weights is
    written as a FORMAT.md checkpoint and exported through the port's CLI
    (65,536 levels at batch 1024); the levels are checked, the kernels'
@@ -191,6 +194,7 @@ N_LEVELS = 65536
 ATOL, RTOL = 2.0 ** -6, 2.0 ** -6
 # whole-generator check, kernels vs plain on the card, same z and noise
 LOGIT_TOL = 0.05             # max |dlogit| / max |logit|
+HEAD_SCALES = (0.01, 0.1, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0)  # the head's logits
 TILE_AGREE = 0.97            # share of identical sampled tiles
 # the export's pack=None must pick the faster path, within the spread of
 # host-bound levels/s between runs of one tree (10-25%, PERF.md)
@@ -227,17 +231,21 @@ REPRO_STEPS = 3              # train.steps of each of the repro phase's runs
 SUM_TOL = 2.0 ** -6
 K2_TOL = 1e-5                # K2 core in f32: max rel error
 # launches per training step (n_critic 5: five fakes and one generator
-# update through the stages, five gradient penalties)
+# update through the stages, five gradient penalties; no step samples
+# through the fused head, which only the export and the probe take)
 PER_STEP = {
     "gumbel_64": {"K1": 18, "K1L": 6, "K1 bwd": 3, "K1L bwd": 1,
-                  "K2 core fwd": 5, "K2 core bwd": 5, "K2 fused": 0},
+                  "K2 core fwd": 5, "K2 core bwd": 5, "K2 fused": 0,
+                  "head": 0},
     "wgan_gp_32": {"K1": 18, "K1L": 0, "K1 bwd": 3, "K1L bwd": 0,
-                   "K2 core fwd": 5, "K2 core bwd": 5, "K2 fused": 5},
+                   "K2 core fwd": 5, "K2 core bwd": 5, "K2 fused": 5,
+                   "head": 0},
 }
 PER_STEP["wgan_gp_32_structural"] = PER_STEP["wgan_gp_32"]
 # the BCE step: D's fake and G's update through the two stages, no GP
 PER_STEP["toy_dcgan_16"] = {"K1": 4, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
-                            "K2 core fwd": 0, "K2 core bwd": 0, "K2 fused": 0}
+                            "K2 core fwd": 0, "K2 core bwd": 0, "K2 fused": 0,
+                            "head": 0}
 # the projection critic takes the K2 core ('auto'; fused refuses it)
 PER_STEP["conditional_32"] = {**PER_STEP["wgan_gp_32"], "K2 fused": 0}
 # the dp phase's mbstd pair (wgan_gp_32 with model.critic_mbstd): 'auto'
@@ -248,7 +256,7 @@ PER_STEP["mbstd_pair"] = PER_STEP["conditional_32"]
 # the G update's backward, three GPs; the agents run no kernel of the port
 PER_STEP["curriculum_16"] = {"K1": 8, "K1L": 0, "K1 bwd": 2, "K1L bwd": 0,
                              "K2 core fwd": 3, "K2 core bwd": 3,
-                             "K2 fused": 0}
+                             "K2 fused": 0, "head": 0}
 PER_STEP["curriculum_16_joint"] = {**PER_STEP["curriculum_16"],
                                    "K2 fused": 3}
 # the track family: no upsample stage and no fused GP; the critic's GP is
@@ -257,7 +265,7 @@ PER_STEP["curriculum_16_joint"] = {**PER_STEP["curriculum_16"],
 # critic and the race sim are plain PyTorch ops
 PER_STEP["racetrack_32"] = {"K1": 0, "K1L": 0, "K1 bwd": 0, "K1L bwd": 0,
                             "K2 core fwd": 5, "K2 core bwd": 5,
-                            "K2 fused": 0}
+                            "K2 fused": 0, "head": 0}
 PER_STEP["race_curriculum_32"] = {**PER_STEP["racetrack_32"],
                                   "K2 core fwd": 3, "K2 core bwd": 3}
 # the curriculum's metrics besides d_loss, g_loss, gp, wdist
@@ -522,7 +530,8 @@ def rel_err(a, b) -> float:
 COUNTERS = {"K1": "k1.fwd_launches", "K1L": "k1l.fwd_launches",
             "K1 bwd": "k1.bwd_launches", "K1L bwd": "k1l.bwd_launches",
             "K2 core fwd": "k2.fwd_launches",
-            "K2 core bwd": "k2.bwd_launches", "K2 fused": "k2f.launches"}
+            "K2 core bwd": "k2.bwd_launches", "K2 fused": "k2f.launches",
+            "head": "head.launches"}
 
 
 def reset_counts() -> None:
@@ -687,6 +696,80 @@ def k1_fwd_split(b, h, ci, co, gs, w, run, timer) -> str:
             f"not in ms) {t_pack:.5f} ms")
 
 
+def head_kernel(cfg, device, batch=B):
+    """The fused sampling head (``kernels/sample_ids.py``) at the export's
+    batch: bit for bit against its plain version on logits N(0, s^2) for s
+    in HEAD_SCALES and on a seeded gumbel_64 generator's own logits, with
+    the kernel's device time on each (``queued_ms``); the routed head
+    (``models.sample_ids``) against ``decode(sample_head(...))`` drawn from
+    one seed, with its launch count; then, on the generator's logits, the
+    device times (``queued_ms``) of the routed head (the uniforms'
+    ``torch.rand`` and the kernel), the plain version on the same uniforms
+    and the chain the export ran before (``library_ms``: its own ``rand``
+    included), beside the byte bound."""
+    import torch
+    from levelgan_torch.data.codec import decode
+    from levelgan_torch.kernels import sample_ids as k
+    from levelgan_torch.models import Generator, sample_head, sample_ids
+    m = cfg.model
+    tau = m.tau_end
+    shape = (batch, m.level_size, m.level_size, m.n_tiles)
+    gen = torch.Generator(device).manual_seed(500)
+    model = Generator(m).init_params(torch.Generator().manual_seed(0)).to(
+        device)
+    with torch.inference_mode():
+        own = model(torch.randn((batch, m.latent_dim), generator=gen,
+                                device=device))
+    warm_card(device)
+    ms = {}
+    for scale in (*HEAD_SCALES, "generator"):
+        logits = (own if scale == "generator" else
+                  scale * torch.randn(shape, generator=gen, device=device))
+        u = torch.rand(shape, generator=gen, device=device)
+        got = k.gumbel_ids(logits, u, tau)
+        want = k.gumbel_ids_plain(logits, u, tau)
+        if not torch.equal(got, want):
+            fail(f"the fused head differs from its plain version in "
+                 f"{int((got != want).sum())} of {got.numel()} tiles "
+                 f"(logits {scale}, tau {tau})")
+        ms[scale] = queued_ms(lambda: k.gumbel_ids(logits, u, tau))
+
+    def rng():
+        return torch.Generator(device).manual_seed(9)
+
+    reset_counts()
+    routed = sample_ids(own, "gumbel", tau, generator=rng())
+    launches = read_counts()["head"]
+    chain = decode(sample_head(own, "gumbel", tau, generator=rng()))
+    if not torch.equal(routed, chain) or launches != 1:
+        fail(f"sample_ids: {int((routed != chain).sum())} tiles differ from "
+             f"decode(sample_head(...)), {launches} head launches (want 1)")
+    nbytes = 2 * own.numel() * 4 + routed.numel()
+    bound, by = bound_ms(0.0, nbytes)
+    r = rng()
+    times = {
+        "kernel": ms["generator"],
+        "sample_ids": queued_ms(lambda: sample_ids(own, "gumbel", tau,
+                                                   generator=r)),
+        "plain": queued_ms(lambda: k.gumbel_ids_plain(own, u, tau)),
+        "library": queued_ms(lambda: decode(sample_head(
+            own, "gumbel", tau, generator=r)))}
+    print(f"  [{', '.join(map(str, shape))}], tau {tau}: kernel == plain bit "
+          f"for bit on logits N(0, s^2), s in {HEAD_SCALES}, and on a "
+          "gumbel_64 generator's logits (std "
+          f"{float(own.std()):.4g}); sample_ids == decode(sample_head(...)) "
+          "from one seed, 1 launch")
+    print("  kernel ms by logits: " + ", ".join(
+        f"{s} {t:.5f}" for s, t in ms.items()))
+    print(f"  on the generator's logits: kernel {times['kernel']:.5f} ms "
+          f"against its bound {bound:.5f} ms ({by}: {nbytes:,} B), "
+          f"{100 * bound / times['kernel']:.1f}% of the roofline; sample_ids "
+          f"(rand + kernel) {times['sample_ids']:.5f} ms; plain "
+          f"{times['plain']:.5f} ms; library_ms (decode(sample_head(...)), "
+          f"rand included) {times['library']:.5f} ms")
+    return times
+
+
 def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     """Phase 4: export through the port's CLI with counted kernel launches."""
     import numpy as np
@@ -708,7 +791,7 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
                    str(batch), "--out", out, "--seed", "0"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: read_counts()[k] for k in ("K1", "K1L")}
+    counts = {k: read_counts()[k] for k in ("K1", "K1L", "head")}
     if rc != 0:
         fail(f"export CLI returned {rc}")
 
@@ -723,7 +806,7 @@ def main_path(cfg, device, workdir, n_levels=N_LEVELS, batch=B):
     n_batches = -(-n_levels // batch)
     fits = [k1.fits(h, h) for _, h, _, _ in stage_shapes(cfg)]
     expect = {"K1": n_batches * sum(fits),
-              "K1L": n_batches * (len(fits) - sum(fits))}
+              "K1L": n_batches * (len(fits) - sum(fits)), "head": n_batches}
     if counts != expect:
         fail(f"kernel launches {counts} != expected {expect}")
     # the weights never change during an export: one packing per stage
@@ -2033,6 +2116,9 @@ def train_path(name, overrides, steps, workdir):
         fits = [k1.fits(h, h) for _, h, _, _ in stage_shapes(preset(name))]
         expect["K1"] += (probes + renders) * sum(fits)
         expect["K1L"] += (probes + renders) * (len(fits) - sum(fits))
+        m = preset(name).model
+        if m.head == "gumbel" and m.structural_head == "none":
+            expect["head"] += probes + renders
     print(f"  trained {steps} steps through the CLI in {wall:.3f} s "
           f"(wall, incl. corpus carving and checkpoint); launches {counts}; "
           f"gn_act_bwd_folded on CUDA tensors: {sum(on_card)} times")
@@ -2617,7 +2703,7 @@ def train_vs_plain(cfg, device):
     n_k1l = len(stage_shapes(cfg)) - n_k1
     want = {"K1": n_k1, "K1L": n_k1l, "K1 bwd": n_k1, "K1L bwd": n_k1l,
             "K2 core fwd": 1, "K2 core bwd": 1,
-            "K2 fused": int(m.pallas_gp == "fused")}
+            "K2 fused": int(m.pallas_gp == "fused"), "head": 0}
     if launches != want or any(p[4].values()) or any(ref[4].values()):
         fail(f"kernel side launched {launches} (want {want}), plain sides "
              f"{p[4]} {ref[4]}")
@@ -3178,6 +3264,7 @@ def gates_cli_run(workdir: str) -> tuple[str, dict]:
     renders = GATES_STEPS // RENDER_EVERY
     expect = {k: GATES_STEPS * v for k, v in PER_STEP["curriculum_16"].items()}
     expect["K1"] += renders * 2          # a render: the EMA's two stages
+    expect["head"] += renders            # and its one batch's head
     if counts != expect:
         fail(f"curriculum_16 with the io hooks: launches {counts} != "
              f"{expect}")
@@ -4209,7 +4296,7 @@ def kernels_line(records, counts, train_records, train_counts,
     return {"kernels": out}
 
 
-PHASES = ("build", "parity", "export", "export_repair", "export_cond",
+PHASES = ("build", "parity", "head", "export", "export_repair", "export_cond",
           "export_profile", "train_parity", "k2_core", "train", "train_check",
           "train_profile", "pair_drift", "race_drift", "repro", "gates",
           "dp")
@@ -4286,6 +4373,10 @@ def main(argv=()) -> int:
             if [n for n in names if "upsample_rows_stage_kernel" not in n]:
                 fail(f"the K1L stage at B={b} ran other device kernels than "
                      f"its own: {names}")
+    if phase("head"):
+        print(f"fused sampling head parity and timing (gumbel_64, B={B}, "
+              "f32 logits):")
+        head_kernel(cfg, device)
     workdir = tempfile.mkdtemp(prefix="levelgan_torch_smoke_")
     try:
         if phase("export"):

@@ -96,7 +96,6 @@ import torch
 
 from levelgan_torch import obs
 from levelgan_torch.config import Config
-from levelgan_torch.data.codec import decode
 from levelgan_torch.data.dataset import LevelDataset
 from levelgan_torch.device import resolve_device
 from levelgan_torch.dist import mesh
@@ -104,7 +103,7 @@ from levelgan_torch.lio.checkpoint import (all_checkpoints, load_checkpoint,
                                            save_checkpoint)
 from levelgan_torch.lio.metrics import MetricsLogger, kl_divergence
 from levelgan_torch.lio.quality import playability
-from levelgan_torch.models import sample_head
+from levelgan_torch.models import sample_ids
 from levelgan_torch.track.data import TrackDataset
 from levelgan_torch.track.train import (draw_track_noise,
                                         make_track_curriculum_step,
@@ -198,9 +197,8 @@ def make_quality_probe(cfg: Config, n: int):
         dev = next(gen.parameters()).device
         z = torch.randn((n, m.latent_dim), generator=generator, device=dev)
         logits = gen(z, cond)
-        ids = decode(sample_head(logits, head, tau=m.tau_end,
-                                 structural=m.structural_head,
-                                 generator=generator))
+        ids = sample_ids(logits, head, tau=m.tau_end,
+                         structural=m.structural_head, generator=generator)
         shares = playability(ids)
         return {k: shares[k] for k in ("solvable_frac", "has_start_frac",
                                        "has_goal_frac")}

@@ -26,9 +26,8 @@ import torch
 
 from levelgan_torch import obs
 from levelgan_torch.config import Config
-from levelgan_torch.data.codec import decode
 from levelgan_torch.device import resolve_device
-from levelgan_torch.models import Generator, sample_head
+from levelgan_torch.models import Generator, sample_ids
 from levelgan_torch.native.build import unpack_planes
 from levelgan_torch.ops.repair import ensure_start_goal
 from levelgan_torch.track.models import TrackGenerator
@@ -186,10 +185,9 @@ def generate_batch(gen: Generator, cfg: Config, z: torch.Tensor, cond=None, *,
     with obs.span("export.generator"):
         logits = gen(z, cond, plain=plain)
     with obs.span("export.head"):
-        ids = decode(sample_head(logits, _export_head(cfg),
-                                 tau=cfg.model.tau_end,
-                                 structural=cfg.model.structural_head,
-                                 noise=noise, generator=generator))
+        ids = sample_ids(logits, _export_head(cfg), tau=cfg.model.tau_end,
+                         structural=cfg.model.structural_head, noise=noise,
+                         generator=generator, plain=plain)
         if repair:      # inside the head's span until it has its own
             target = (cond[:, 3] if repair_placement == "uniform"
                       and cond is not None and cfg.model.cond_dim >= 4

@@ -13,6 +13,12 @@ Randomness: ``generator`` (a ``torch.Generator``) or injected Gumbel draws
 ``noise`` — a tensor shaped like ``logits`` for the plain heads, or the
 triple ``(base [B,H,W,T], start [B,H*W], goal [B,H*W])`` for the spatial
 head (the JAX head's three key splits, in order).
+
+``sample_ids`` is the ids-only path of the export and the quality probe:
+``decode(sample_head(...))``, or, where the fused kernel computes exactly
+that (``fused_head``), the same uniforms drawn the same way and handed to
+``kernels.sample_ids``.  Training keeps ``sample_head``: it needs the
+straight-through sample's gradient.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from levelgan_torch.config import GOAL, START
+from levelgan_torch.data.codec import decode
+from levelgan_torch.kernels.sample_ids import MAX_TILES, gumbel_ids
 from levelgan_torch.ops.gumbel import gumbel_softmax
 
 _NEG = -1e9  # additive logit mask; finite so masked softmax stays exact 0-mass
@@ -31,6 +39,33 @@ def sample_head(logits, head: str, tau=1.0, structural: str = "none", *,
     if structural == "spatial":
         return _spatial_structural(logits, head, tau, noise, generator)
     return _plain_head(logits, head, tau, noise, generator)
+
+
+def fused_head(logits, head: str, structural: str = "none", noise=None,
+               plain: bool = False) -> bool:
+    """Whether ``sample_ids`` takes the fused kernel: the Gumbel head with no
+    structural head and no injected draws, on f32 CUDA logits of at most
+    ``MAX_TILES`` tiles, unless ``plain``."""
+    return (head == "gumbel" and structural == "none" and noise is None
+            and not plain and logits.is_cuda
+            and logits.dtype == torch.float32
+            and logits.shape[-1] <= MAX_TILES)
+
+
+def sample_ids(logits, head: str, tau=1.0, structural: str = "none", *,
+               noise=None, generator: torch.Generator | None = None,
+               plain: bool = False) -> torch.Tensor:
+    """uint8 tile ids [...] of ``sample_head``'s sample of logits [..., T]:
+    ``decode(sample_head(...))``, bit for bit.  Where ``fused_head`` holds,
+    the uniforms are drawn as ``gumbel_noise`` draws them (``torch.rand``
+    of the logits' shape from ``generator``) and one kernel does the rest
+    (``plain=True``: the plain path, as the generator's ``plain``)."""
+    if fused_head(logits, head, structural, noise, plain):
+        u = torch.rand(logits.shape, dtype=torch.float32,
+                       device=logits.device, generator=generator)
+        return gumbel_ids(logits.contiguous(), u, tau)
+    return decode(sample_head(logits, head, tau, structural, noise=noise,
+                              generator=generator))
 
 
 def _one_hot(idx, n, like):

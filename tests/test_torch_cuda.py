@@ -917,3 +917,128 @@ def test_k1l_bwd_probe_times_every_phase(cuda):
     assert all(t > 0 for t in probe.tolist()), probe.tolist()
     with pytest.raises(ValueError, match="probe"):
         k1l.upsample_rows_bwd(*args, probe=probe[:2])
+
+
+# the fused sampling head (kernels/sample_ids.py): bit for bit against its
+# plain version, which is decode(sample_head(...))'s chain of operations
+HEAD_SCALES = (0.01, 0.1, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0)
+
+
+def _head_ids(logits, u, tau):
+    from levelgan_torch.kernels import sample_ids as k
+    n = obs.counters["head.launches"]
+    got = k.gumbel_ids(logits, u, tau)
+    assert obs.counters["head.launches"] == n + 1
+    want = k.gumbel_ids_plain(logits, u, tau)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("tau", [0.5, 0.7])
+def test_fused_head_matches_plain_at_gumbel_64(cuda, tau):
+    g = torch.Generator(cuda).manual_seed(23)
+    for scale in HEAD_SCALES:
+        logits = scale * torch.randn((1024, 64, 64, 8), generator=g,
+                                     device=cuda)
+        _head_ids(logits, torch.rand(logits.shape, generator=g, device=cuda),
+                  tau)
+
+
+@pytest.mark.parametrize("tau", [0.5, 0.7])
+@pytest.mark.parametrize("t", [1, 2, 5, 8, 16, 23, 24, 32])
+def test_fused_head_matches_plain_at_every_tile_count(cuda, t, tau):
+    """Ragged tiles (1,221 and 32,768 + 3 pixels: neither a multiple of 4
+    nor of a warp's 128), the crafted ties, both shared-memory plans."""
+    from test_torch_sample_ids import _tied_rows
+    g = torch.Generator(cuda).manual_seed(t)
+    tl, tu = _tied_rows(t)
+    for n in (1221, 32771):
+        logits = torch.cat([3.0 * torch.randn((n, t), generator=g,
+                                              device=cuda), tl.to(cuda)])
+        u = torch.cat([torch.rand((n, t), generator=g, device=cuda),
+                       tu.to(cuda)])
+        _head_ids(logits, u, tau)
+        _head_ids(logits[-6:].contiguous(), u[-6:].contiguous(), tau)
+
+
+def test_export_generate_matches_the_plain_head(cuda):
+    """``export.generate`` on the card: the ids of
+    ``decode(sample_head(...))`` on the same seed's draws, one head launch
+    a batch."""
+    from levelgan_torch.config import preset
+    from levelgan_torch.data.codec import decode
+    from levelgan_torch.export import generate
+    from levelgan_torch.models import Generator, sample_head
+    cfg = preset("gumbel_64")
+    m = cfg.model
+    gen = Generator(m).init_params(torch.Generator().manual_seed(4)).to(cuda)
+    n, batch = 2500, 1024
+    before = obs.counters["head.launches"]
+    levels = generate(cfg, gen, n, seed=77, batch_size=batch, device=cuda)
+    assert obs.counters["head.launches"] == before + 3
+    rng = torch.Generator(cuda).manual_seed(77)
+    want = []
+    with torch.inference_mode():
+        for _ in range(3):
+            z = torch.randn((batch, m.latent_dim), generator=rng, device=cuda)
+            want.append(decode(sample_head(gen(z), "gumbel", m.tau_end,
+                                           generator=rng)))
+    assert (levels == torch.cat(want)[:n].cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("case", ["spatial", "noise", "plain", "softmax"])
+def test_sample_ids_keeps_the_other_heads_on_the_plain_path(cuda, case):
+    from levelgan_torch.data.codec import decode
+    from levelgan_torch.models import sample_head, sample_ids
+    g = torch.Generator(cuda).manual_seed(5)
+    logits = 2.0 * torch.randn((4, 16, 16, 8), generator=g, device=cuda)
+    head = "softmax" if case == "softmax" else "gumbel"
+    structural = "spatial" if case == "spatial" else "none"
+    noise = (torch.rand(logits.shape, generator=g, device=cuda)
+             if case == "noise" else None)
+    n = obs.counters["head.launches"]
+    got = sample_ids(logits, head, 0.5, structural, noise=noise,
+                     generator=torch.Generator(cuda).manual_seed(6),
+                     plain=case == "plain")
+    assert obs.counters["head.launches"] == n
+    want = decode(sample_head(logits, head, 0.5, structural, noise=noise,
+                              generator=torch.Generator(cuda).manual_seed(6)))
+    assert torch.equal(got, want)
+
+
+def test_gumbel_transform_matches_torch_for_every_draw(cuda, tmp_path):
+    """``csrc/gumbel.cuh`` (the fused head's -log(-log(max(u, FLT_MIN))),
+    built by this machine's nvcc) against ``gumbel_noise``'s chain in
+    PyTorch's own kernels, bit for bit, on every value torch.rand draws
+    (k * 2^-24, k < 2^24), and at a denormal, a negative u and the largest
+    float below 1."""
+    import ctypes
+    import subprocess
+    from levelgan_torch.kernels import build
+    src = tmp_path / "gumbel_check.cu"
+    src.write_text(
+        '#include "gumbel.cuh"\n'
+        "__global__ void noise(const float* u, float* g, int n) {\n"
+        "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+        "  if (i < n) g[i] = gumbel::gumbel_noise(u[i]);\n"
+        "}\n"
+        'extern "C" int run(const void* u, void* g, int n, void* st) {\n'
+        "  noise<<<(n + 255) / 256, 256, 0, (cudaStream_t)st>>>(\n"
+        "      (const float*)u, (float*)g, n);\n"
+        "  return (int)cudaGetLastError();\n"
+        "}\n")
+    lib = tmp_path / "gumbel_check.so"
+    subprocess.run([build._nvcc(), build.ARCH, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-I", str(build.CSRC), "-o",
+                    str(lib), str(src)], check=True)
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.cat([torch.arange(2 ** 24, device=cuda,
+                                dtype=torch.float32) * 2.0 ** -24,
+                   torch.tensor([tiny / 4, -0.5, 1 - 2.0 ** -24],
+                                device=cuda)])
+    g = torch.empty_like(u)
+    assert run(u.data_ptr(), g.data_ptr(), u.numel(),
+               torch.cuda.current_stream().cuda_stream) == 0
+    want = -torch.log(-torch.log(u.clamp_min(tiny)))
+    assert torch.equal(g, want), int((g != want).sum())
